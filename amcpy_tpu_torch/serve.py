@@ -1,7 +1,8 @@
-"""Serving: raw IQ -> modulation label, extract -> standardize -> classify.
+"""Serving: raw IQ -> modulation label.
 
-Counterpart of ``amcpy_tpu/serve.py`` (``AMCPipeline``) for the feature
-MLP on one device:
+Counterpart of ``amcpy_tpu/serve.py`` (``AMCPipeline``) on one device, for
+both model families: the feature MLP (extract -> standardize -> classify)
+and the raw-IQ CNN (frames straight into the model):
 
     pipe = AMCPipeline.from_checkpoint(cfg, model_id)   # device=None: CUDA
     labels = pipe.predict(frames)            # (B, N) complex or (B, 2, N)
@@ -14,11 +15,20 @@ vector and the logits never leave it. The extractor is the one
 extraction route alike. The exact batch is dispatched: eager PyTorch has
 no retrace to bound, so the JAX package's power-of-two buckets are not
 needed (they return with CUDA-graph capture). The MLP runs in full float32,
-as the JAX MLP does: ``torch.backends.cuda.matmul.allow_tf32`` is held at
-False for the MLP's call only and restored after it.
+as the JAX MLP does: TF32 is held off for the MLP's call only and restored
+after it.
 
-Not ported here: the raw-IQ CNN family, multi-device fan-out and the int24
-wire program.
+A raw-IQ :class:`~amcpy_tpu_torch.models.cnn.IQConvNet` checkpoint has no
+feature or standardize stage (the identity scaler in its sidecar is not
+used). When the kernel resolves to ``"fused"`` (``"auto"`` on CUDA) and
+:func:`~amcpy_tpu_torch.ops.cnn_infer.supports_fused` holds (the default
+k=1/stride-1 bf16 stack), a request runs the CUDA trunk kernel K3 on the I
+and Q planes and the dense head (``cnn_logits_fused``, with the BatchNorm
+folded once when the pipeline is built). Every other case runs the module
+forward, as the JAX package does: ``kernel="xla"`` or ``"pallas"``, the
+CPU, a k>1 or strided stack, an f32 model.
+
+Not ported here: multi-device fan-out and the int24 wire program.
 """
 
 from __future__ import annotations
@@ -31,18 +41,24 @@ import torch
 from amcpy_tpu_torch.config import Config
 from amcpy_tpu_torch.extraction import _kernel_fn, resolve_kernel, resolve_wire_format
 from amcpy_tpu_torch.models.classifier import AMCClassifier
+from amcpy_tpu_torch.models.cnn import IQConvNet
+from amcpy_tpu_torch.ops.cnn_infer import (
+    cnn_logits_fused,
+    fold_bn_params,
+    supports_fused,
+)
 from amcpy_tpu_torch.preprocessing import Standardizer
-from amcpy_tpu_torch.utils.device import resolve_device
+from amcpy_tpu_torch.utils.device import no_tf32, resolve_device
 
 __all__ = ["AMCPipeline"]
 
 
 class AMCPipeline:
-    """Extract + standardize + classify inference pipeline."""
+    """Inference pipeline: extract + standardize + MLP, or the raw-IQ CNN."""
 
     def __init__(
         self,
-        model: AMCClassifier,
+        model: "AMCClassifier | IQConvNet",
         scaler: Standardizer,
         cfg: Config,
         device: "str | torch.device | None" = None,
@@ -51,6 +67,18 @@ class AMCPipeline:
         self.model = model.to(self.device).eval()
         self.scaler = scaler
         self.cfg = cfg
+        self._kernel = resolve_kernel(cfg.compute.kernel, self.device)
+        resolve_wire_format(cfg.compute.wire_format)
+        if isinstance(model, IQConvNet):
+            #: folded trunk and head weights when requests run K3, else None
+            self._folded = (
+                fold_bn_params(self.model)
+                if self._kernel == "fused" and supports_fused(model)
+                else None
+            )
+            # K3 takes the I and Q planes, the module forward (B, 2, N)
+            self._wants_planes = self._folded is not None
+            return
         self._cols = torch.as_tensor(
             list(cfg.features.used_columns), device=self.device
         )
@@ -60,12 +88,10 @@ class AMCPipeline:
         self._std = torch.as_tensor(
             scaler.std, dtype=torch.float32, device=self.device
         )
-        self._kernel = resolve_kernel(cfg.compute.kernel, self.device)
         self._extract, self._wants_planes = _kernel_fn(
             self._kernel, cfg.compute.normalize_scale, cfg.compute.gmax_mode,
             self.device,
         )
-        resolve_wire_format(cfg.compute.wire_format)
 
     @classmethod
     def from_checkpoint(
@@ -85,9 +111,10 @@ class AMCPipeline:
     # ------------------------------------------------------------------
 
     def _to_device(self, frames: np.ndarray) -> tuple[torch.Tensor, ...]:
-        """Host ``(B, N)`` complex or ``(B, 2, N)`` planar -> the extractor's
-        input on the device: two contiguous ``(B, N)`` planes for the fused
-        route, one packed ``(B, 2, N)`` tensor for the others."""
+        """Host ``(B, N)`` complex or ``(B, 2, N)`` planar -> the first
+        stage's input on the device: two contiguous ``(B, N)`` planes for the
+        fused routes (K1, K3), one packed ``(B, 2, N)`` tensor for the
+        others."""
         frames = np.asarray(frames)
         if np.iscomplexobj(frames):
             if frames.ndim != 2:
@@ -109,22 +136,26 @@ class AMCPipeline:
             for p in planes
         )
 
+    @property
+    def is_cnn(self) -> bool:
+        return isinstance(self.model, IQConvNet)
+
     @torch.inference_mode()
     def logits(self, frames: np.ndarray) -> torch.Tensor:
         """Logits ``(B, n_classes)`` on the pipeline's device."""
-        feats = self._extract(*self._to_device(frames))
+        arrs = self._to_device(frames)
+        if self.is_cnn:
+            if self._folded is not None:
+                return cnn_logits_fused(self.model, *arrs, folded=self._folded)
+            return self.model(*arrs)
+        feats = self._extract(*arrs)
         x = (feats[:, self._cols] - self._mean) / self._std
         return self._classify(x)
 
     def _classify(self, x: torch.Tensor) -> torch.Tensor:
         """The MLP on standardized features, in full float32 (no TF32)."""
-        flags = torch.backends.cuda.matmul
-        allow_tf32 = flags.allow_tf32
-        flags.allow_tf32 = False
-        try:
+        with no_tf32():
             return self.model(x)
-        finally:
-            flags.allow_tf32 = allow_tf32
 
     def predict(self, frames: np.ndarray) -> np.ndarray:
         """Predicted class ids, one per frame."""

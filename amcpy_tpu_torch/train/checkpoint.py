@@ -4,12 +4,15 @@ Counterpart of the inference part of ``amcpy_tpu/train/checkpoint.py``. A
 checkpoint is ``ann/model-{id}.pt`` (the model's ``state_dict``, read back
 with ``weights_only=True``) plus ``ann/model-{id}.json``, a sidecar with
 the same keys as the JAX package's: scaler, used columns, training
-hyperparameters, split provenance and model family.
+hyperparameters, split provenance and model family. ``model.family`` is
+``"mlp"`` (the feature MLP) or ``"cnn"`` (the raw-IQ :class:`IQConvNet`,
+rebuilt from ``model.arch``).
 
-:func:`params_from_flax` maps the JAX package's flax parameter and
-batch-statistics pytrees (as NumPy arrays) onto :class:`AMCClassifier`, so
-one set of weights runs in both packages. Optimizer state, training resume
-and the flax-msgpack reader wait for later slices.
+:func:`params_from_flax` and :func:`cnn_params_from_flax` map the JAX
+package's flax parameter and batch-statistics pytrees (as NumPy arrays)
+onto :class:`AMCClassifier` and :class:`IQConvNet`, so one set of weights
+runs in both packages. Optimizer state, training resume and the
+flax-msgpack reader wait for later slices.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from amcpy_tpu_torch.config import Config
 from amcpy_tpu_torch.models.classifier import AMCClassifier
+from amcpy_tpu_torch.models.cnn import IQConvNet
 from amcpy_tpu_torch.preprocessing import Standardizer
 
 __all__ = [
@@ -34,6 +38,7 @@ __all__ = [
     "load_checkpoint",
     "resolve_model_id",
     "params_from_flax",
+    "cnn_params_from_flax",
 ]
 
 
@@ -52,13 +57,24 @@ def _write_atomic(path: Path, data, mode: str) -> None:
 def save_checkpoint(
     cfg: Config,
     model_id: str,
-    model: AMCClassifier,
+    model: "AMCClassifier | IQConvNet",
     scaler: Standardizer,
     history: dict[str, list[float]] | None = None,
     epoch: int | None = None,
     model_meta: dict[str, Any] | None = None,
 ) -> Path:
-    """Write ``model-{id}.pt`` and its JSON sidecar; return the ``.pt`` path."""
+    """Write ``model-{id}.pt`` and its JSON sidecar; return the ``.pt`` path.
+
+    ``model_meta`` defaults to ``{"family": "mlp"}`` for the MLP and, for an
+    :class:`IQConvNet`, to ``{"family": "cnn", "input_shape": [2, N],
+    "arch": {...}}`` with the keys the JAX CLI writes.
+    """
+    if model_meta is None and isinstance(model, IQConvNet):
+        model_meta = {
+            "family": "cnn",
+            "input_shape": [2, cfg.signals.frame_size],
+            "arch": model.arch(),
+        }
     cfg.paths.ensure_dirs()
     path = cfg.paths.trained_ann / f"model-{model_id}.pt"
     buf = io.BytesIO()
@@ -105,26 +121,34 @@ def save_checkpoint(
 
 def load_checkpoint(
     cfg: Config, model_id: str
-) -> tuple[AMCClassifier, Standardizer, dict[str, Any]]:
+) -> tuple["AMCClassifier | IQConvNet", Standardizer, dict[str, Any]]:
     """Rebuild the model (on the CPU, in eval mode), its scaler and the
-    sidecar metadata."""
+    sidecar metadata. The sidecar's ``model.family`` selects the model; an
+    unknown family raises ``NotImplementedError``."""
     meta = json.loads(
         (cfg.paths.trained_ann / f"model-{model_id}.json").read_text()
     )
     mcfg = meta["config"].get("model") or {"family": "mlp"}
-    if mcfg.get("family", "mlp") != "mlp":
-        raise NotImplementedError(
-            f"model family {mcfg.get('family')!r} is not ported yet "
-            "(ROADMAP Queue A, item 15)"
+    family = mcfg.get("family", "mlp")
+    if family == "cnn":
+        model = IQConvNet(
+            n_classes=meta["config"]["n_classes"],
+            **{
+                k: tuple(v) if isinstance(v, list) else v
+                for k, v in (mcfg.get("arch") or {}).items()
+            },
         )
-    tcfg = meta["config"]["training"]
-    model = AMCClassifier(
-        n_classes=meta["config"]["n_classes"],
-        hidden_sizes=tuple(tcfg["hidden_sizes"]),
-        dropout=tcfg["dropout"],
-        activation=tcfg["activation"],
-        in_features=len(meta["config"]["features"]["used_columns"]),
-    )
+    elif family == "mlp":
+        tcfg = meta["config"]["training"]
+        model = AMCClassifier(
+            n_classes=meta["config"]["n_classes"],
+            hidden_sizes=tuple(tcfg["hidden_sizes"]),
+            dropout=tcfg["dropout"],
+            activation=tcfg["activation"],
+            in_features=len(meta["config"]["features"]["used_columns"]),
+        )
+    else:
+        raise NotImplementedError(f"unknown model family {family!r}")
     state = torch.load(
         cfg.paths.trained_ann / f"model-{model_id}.pt",
         map_location="cpu", weights_only=True,
@@ -150,6 +174,23 @@ def resolve_model_id(cfg: Config, model_id: str | None = None) -> str:
     return newest
 
 
+def _arr(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _norm_state(state, params, batch_stats, count: int) -> None:
+    """``norm.k.*`` of ``state`` from flax's ``BatchNorm_k`` (k < count):
+    ``scale``/``bias`` -> ``weight``/``bias``, batch stats ``mean``/``var``
+    -> ``running_mean``/``running_var``."""
+    for k in range(count):
+        bn, st = params[f"BatchNorm_{k}"], batch_stats[f"BatchNorm_{k}"]
+        state[f"norm.{k}.weight"] = _arr(bn["scale"])
+        state[f"norm.{k}.bias"] = _arr(bn["bias"])
+        state[f"norm.{k}.running_mean"] = _arr(st["mean"])
+        state[f"norm.{k}.running_var"] = _arr(st["var"])
+        state[f"norm.{k}.num_batches_tracked"] = torch.tensor(0)
+
+
 def params_from_flax(
     params: Mapping[str, Mapping[str, Any]],
     batch_stats: Mapping[str, Mapping[str, Any]],
@@ -158,28 +199,41 @@ def params_from_flax(
 
     * ``Dense_k.kernel`` (in, out) -> ``dense.k.weight`` (out, in),
       transposed; ``Dense_k.bias`` -> ``dense.k.bias``;
-    * ``BatchNorm_k.scale``/``bias`` -> ``norm.k.weight``/``bias``;
-    * batch stats ``BatchNorm_k.mean``/``var`` -> ``norm.k.running_mean``/
-      ``running_var``;
+    * ``BatchNorm_k`` -> ``norm.k`` (:func:`_norm_state`);
     * the last ``Dense_{len(hidden)}`` -> ``out``.
     """
-    def arr(x) -> torch.Tensor:
-        return torch.from_numpy(np.array(x, dtype=np.float32))
-
     n_hidden = sum(1 for k in params if k.startswith("BatchNorm_"))
     state: OrderedDict[str, torch.Tensor] = OrderedDict()
     for k in range(n_hidden):
         dense = params[f"Dense_{k}"]
-        state[f"dense.{k}.weight"] = arr(dense["kernel"]).T.contiguous()
-        state[f"dense.{k}.bias"] = arr(dense["bias"])
-    for k in range(n_hidden):
-        bn, st = params[f"BatchNorm_{k}"], batch_stats[f"BatchNorm_{k}"]
-        state[f"norm.{k}.weight"] = arr(bn["scale"])
-        state[f"norm.{k}.bias"] = arr(bn["bias"])
-        state[f"norm.{k}.running_mean"] = arr(st["mean"])
-        state[f"norm.{k}.running_var"] = arr(st["var"])
-        state[f"norm.{k}.num_batches_tracked"] = torch.tensor(0)
+        state[f"dense.{k}.weight"] = _arr(dense["kernel"]).T.contiguous()
+        state[f"dense.{k}.bias"] = _arr(dense["bias"])
+    _norm_state(state, params, batch_stats, n_hidden)
     last = params[f"Dense_{n_hidden}"]
-    state["out.weight"] = arr(last["kernel"]).T.contiguous()
-    state["out.bias"] = arr(last["bias"])
+    state["out.weight"] = _arr(last["kernel"]).T.contiguous()
+    state["out.bias"] = _arr(last["bias"])
+    return state
+
+
+def cnn_params_from_flax(
+    params: Mapping[str, Mapping[str, Any]],
+    batch_stats: Mapping[str, Mapping[str, Any]],
+) -> "OrderedDict[str, torch.Tensor]":
+    """``state_dict`` of :class:`IQConvNet` from the flax pytrees.
+
+    * ``Conv_k.kernel`` (k, C_in, C_out) -> ``conv.k.weight``
+      (C_out, C_in, k); ``Conv_k.bias`` -> ``conv.k.bias``;
+    * ``BatchNorm_k`` -> ``norm.k`` (:func:`_norm_state`);
+    * ``Dense_0`` -> ``dense`` and ``Dense_1`` -> ``out``, transposed.
+    """
+    n_conv = sum(1 for k in params if k.startswith("Conv_"))
+    state: OrderedDict[str, torch.Tensor] = OrderedDict()
+    for k in range(n_conv):
+        conv = params[f"Conv_{k}"]
+        state[f"conv.{k}.weight"] = _arr(conv["kernel"]).permute(2, 1, 0).contiguous()
+        state[f"conv.{k}.bias"] = _arr(conv["bias"])
+    _norm_state(state, params, batch_stats, n_conv)
+    for name, layer in (("dense", "Dense_0"), ("out", "Dense_1")):
+        state[f"{name}.weight"] = _arr(params[layer]["kernel"]).T.contiguous()
+        state[f"{name}.bias"] = _arr(params[layer]["bias"])
     return state

@@ -7,9 +7,12 @@ that wants the plain PyTorch path on the CPU says so with
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 
-__all__ = ["resolve_device", "sync"]
+__all__ = ["no_tf32", "resolve_device", "sync"]
 
 
 def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
@@ -27,3 +30,16 @@ def sync(device: torch.device) -> None:
     """Wait for the device's queued work (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def no_tf32() -> Iterator[None]:
+    """Full float32 matrix products and convolutions on the card (no TF32)
+    inside the block; both process-wide flags are restored after it."""
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = mm.allow_tf32, cudnn.allow_tf32
+    mm.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        mm.allow_tf32, cudnn.allow_tf32 = saved

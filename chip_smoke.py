@@ -6,14 +6,17 @@
 Phases, each printing one JSON line:
 
 1. device — the card's name, and its name and power limit from nvidia-smi;
-2. build  — nvcc builds every kernel source of the package (all at once),
-   with the ptxas report (registers, shared memory, spills);
+2. build  — nvcc builds every kernel source of the package (one nvcc per
+   source, all started together), with the ptxas report (registers, shared
+   memory, spills);
 3. kernels — each CUDA kernel against its plain PyTorch version on the
-   card, on numpy-seeded Gaussian frames with a per-frame scale spread of
-   exp(U(-6, 6)) and a few frames holding -0.0 samples, within
-   2e-4 * term_scales + 2e-5 * |want| per feature; times of the kernel, of
-   the plain version and of one PyTorch library call where one computes the
-   same function;
+   card: K1 and K2 on numpy-seeded Gaussian frames with a per-frame scale
+   spread of exp(U(-6, 6)) and a few frames holding -0.0 samples, within
+   2e-4 * term_scales + 2e-5 * |want| per feature; K3 (the CNN trunk) on
+   the same kind of frames and a numpy-seeded folded default stack
+   (32, 64, 128), within 2e-2 + 2e-2 * |want| on the pooled features; times
+   of the kernel, of the plain version, of one PyTorch library call where
+   one computes the same function, and for K3 of the module forward;
 4. extraction — the main path: a numpy-made ``all_modulations.mat`` at the
    default config (6 modulations x 16 SNR x 1000 frames x 2048 samples)
    through ``run_extraction`` with ``kernel="auto"``; six artifacts of
@@ -27,22 +30,36 @@ Phases, each printing one JSON line:
    (first call, median and maximum of repeats); the statistics-only
    kernel's route answers the 4096-frame request too; the stage split of a
    4096-frame request; ``classify_stream`` on a GNU Radio capture written
-   here.
+   here;
+6. serving_cnn — a seeded random default ``IQConvNet(n_classes=6)`` (k=1,
+   channels 32/64/128, dense 128, bf16), written with ``save_checkpoint``
+   and served by ``AMCPipeline.from_checkpoint`` through K3: requests of 1,
+   100 and 4096 frames of phase 4's dataset, complex and planar, each
+   checked against the module forward (``kernel="xla"``; logits within
+   0.08, argmax identical where its top-two margin exceeds 0.16) and
+   against the plain trunk plus head on the card (K3's tolerance), then
+   timed; the whole 96,000-frame dataset in 4096-frame requests (frames/s);
+   the stage split of a 4096-frame request; ``classify_stream``;
+7. evaluation — ``evaluate_by_snr`` of phase 5's MLP on phase 4's
+   artifacts and ``evaluate_by_snr_raw`` of phase 6's CNN on the dataset
+   (module forwards, as in the JAX package), each a finite (6, 16)
+   accuracy matrix in [0, 1], with its seconds.
 
-Three paths are driven: extraction and serving with ``kernel="auto"``
-(both through K1), and serving with ``kernel="pallas"`` (through K2). Every
-launch counter is set to 0 just before each path and read just after it;
-the run fails if a path did not launch its kernel. The checked call of
-each request also records its own launches. Then come the
-``{"kernels": [...]}`` line (``launches`` summed over the paths that run
-through the kernel, and per path), nvidia-smi's name and power limit, and
-the last line ``{"ok": true, "device": {...}}``. Any failure raises and the
-process exits non-zero; without a CUDA device it exits 1 and prints no
-result.
+Four paths are driven: extraction and serving with ``kernel="auto"``
+(both through K1), serving with ``kernel="pallas"`` (through K2), and CNN
+serving (through K3). Every launch counter is set to 0 just before each
+path and read just after it; the run fails if a path did not launch its
+kernel. The checked call of each request also records its own launches.
+Then come the ``{"kernels": [...]}`` line (``launches`` summed over the
+paths that run through the kernel, and per path), nvidia-smi's name and
+power limit, and the last line ``{"ok": true, "device": {...}}``. Any
+failure raises and the process exits non-zero; without a CUDA device it
+exits 1 and prints no result.
 
 ``bound_ms`` counts what each kernel's function needs, whatever the
-design (``k1_work``, ``k2_work``); ``design_ops_ms`` is the least time of
-K1's own matrix-product DFT at the FP32 rate, which is not a bound.
+design (``k1_work``, ``k2_work``, ``k3_work``); ``design_ops_ms`` is the
+least time of K1's own matrix-product DFT at the FP32 rate, which is not a
+bound.
 """
 
 from __future__ import annotations
@@ -53,6 +70,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -60,6 +78,7 @@ import numpy as np
 #: published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TENSOR_FLOP_PER_S = 989e12
 #: the fewest operations per sample the 17 statistics need, whatever the
 #: kernel, each sample's values computed once (a transcendental counted as
 #: one): amplitude 4 (|x|^2, sqrt), phase 2 (atan2, |phase|), the means'
@@ -70,6 +89,13 @@ FP32_FLOP_PER_S = 67e12
 STATS_OPS_PER_SAMPLE = 80
 
 TOL_SCALE, TOL_REL = 2e-4, 2e-5
+#: K3 against its plain version, pooled features and logits:
+#: |got - want| <= K3_TOL * (1 + |want|). Both round the activations of
+#: layers 0 and 1 to bf16 from float32 values whose last bits differ (sum
+#: order, rsqrtf), so a value next to a rounding boundary lands 2^-8 apart
+K3_TOL = 2e-2
+#: the CNN's default widths: I/Q in, then IQConvNet's (32, 64, 128)
+CNN_WIDTHS = (2, 32, 64, 128)
 
 
 def emit(obj) -> None:
@@ -195,6 +221,71 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def k3_work(b: int, n: int) -> tuple[float, float, float]:
+    """(bytes, bf16 tensor-core operations, FP32 operations) of the default
+    CNN trunk on (b, n) planes: I and Q read once, 2 * C_out floats written per
+    frame, the folded weights and biases read once; the products of the
+    layers after the first (2 * C_out * C_in per sample each); per sample
+    the RMS (2 squares, an add, the running sum, 2 scalings: 6), layer 0
+    (2 products, 2 adds, ReLU: 5 per channel), bias and ReLU of every later
+    layer (2 per channel) and the mean and max pooling (2 per channel)."""
+    widths = CNN_WIDTHS
+    pairs = list(zip(widths[:-1], widths[1:]))
+    nbytes = 8.0 * b * n + 8.0 * b * widths[-1] + 4.0 * sum(o * (i + 1) for i, o in pairs)
+    tensor = float(b) * n * sum(2.0 * o * i for i, o in pairs[1:])
+    fp32 = float(b) * n * (6 + 5 * widths[1] + sum(2 * o for _, o in pairs[1:])
+                           + 2 * widths[-1])
+    return nbytes, tensor, fp32
+
+
+def k3_bound(b: int, n: int) -> tuple[float, str, dict[str, float]]:
+    """The largest of the three times of ``k3_work``; ``operations`` when a
+    count of operations binds."""
+    nbytes, tensor, fp32 = k3_work(b, n)
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "bf16_tensor_ops": tensor / BF16_TENSOR_FLOP_PER_S * 1e3,
+             "fp32_ops": fp32 / FP32_FLOP_PER_S * 1e3}
+    ms = max(parts.values())
+    return ms, "bytes" if ms == parts["bytes"] else "operations", parts
+
+
+def folded_default_stack(torch, dev, seed: int) -> list[tuple]:
+    """A numpy-seeded folded default stack: (C_out, C_in) weights of scale
+    1/sqrt(C_in) and (C_out, 1) biases of scale 0.1, float32 on ``dev``."""
+    rng = np.random.default_rng(seed)
+    return [
+        (torch.from_numpy(rng.normal(0, a**-0.5, (o, a)).astype(np.float32)).to(dev),
+         torch.from_numpy(rng.normal(0, 0.1, (o, 1)).astype(np.float32)).to(dev))
+        for a, o in zip(CNN_WIDTHS[:-1], CNN_WIDTHS[1:])
+    ]
+
+
+def k3_error(got, want) -> tuple[float, float]:
+    """(max |got - want|, its largest ratio to K3_TOL * (1 + |want|))."""
+    if not bool(got.isfinite().all()):
+        raise AssertionError("K3 output is not finite")
+    err = (got - want).abs()
+    return float(err.max()), float((err / (K3_TOL * (1 + want.abs()))).max())
+
+
+def random_cnn(torch, seed: int):
+    """A seeded random default IQConvNet(n_classes=6) with positive running
+    variances, in eval mode."""
+    from amcpy_tpu_torch.models.cnn import IQConvNet
+
+    g = torch.Generator().manual_seed(seed)
+    model = IQConvNet(6)
+    with torch.no_grad():
+        for p in model.parameters():  # weights 1/sqrt(fan-in), vectors 0.1
+            scale = p[0].numel() ** -0.5 if p.ndim > 1 else 0.1
+            p.copy_(torch.randn(p.shape, generator=g) * scale)
+        for norm in model.norm:
+            norm.weight.copy_(torch.rand(norm.num_features, generator=g) + 0.5)
+            norm.running_mean.copy_(torch.randn(norm.num_features, generator=g) * 0.1)
+            norm.running_var.copy_(torch.rand(norm.num_features, generator=g) + 0.5)
+    return model.eval()
+
+
 def phase_kernels(torch, dev) -> dict[str, dict]:
     from amcpy_tpu_torch.ops import features as F
     from amcpy_tpu_torch.ops.fft import best_factorization
@@ -272,12 +363,61 @@ def phase_kernels(torch, dev) -> dict[str, dict]:
     if extract_features_pallas.launches <= before:
         raise AssertionError("the statistics kernel's launch counter did not rise")
     rows["pallas"] = k2
-    emit({"phase": "kernels", "tolerance": "2e-4*term_scales + 2e-5*|want|",
+    rows["cnn_trunk"] = k3_check_and_time(torch, dev, checks)
+    emit({"phase": "kernels",
+          "tolerance": {"K1, K2": "2e-4*term_scales + 2e-5*|want|",
+                        "K3": f"{K3_TOL}*(1 + |want|)"},
           "checks": checks})
     for key, r in rows.items():
         if r["max_err_over_tol"] > 1.0:
             raise AssertionError(f"{key} kernel disagrees with its plain version: {r}")
     return rows
+
+
+def k3_check_and_time(torch, dev, checks: list) -> dict:
+    """K3 against ``cnn_trunk_plain`` on the card at the main path's shapes,
+    then its time at 4096 x 2048 beside the plain version's and the module
+    forward's (cuBLAS bf16 products, activations in device memory)."""
+    from amcpy_tpu_torch.ops.cnn_infer import cnn_trunk, cnn_trunk_plain
+
+    convs = folded_default_stack(torch, dev, seed=20)
+    k3 = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
+    before = cnn_trunk.launches
+    for seed, (b, n) in enumerate([(4096, 2048), (1000, 2048), (37, 1024), (64, 256)],
+                                  start=20):
+        x = test_frames(b, n, seed)
+        i = torch.from_numpy(np.ascontiguousarray(x.real)).to(dev)
+        q = torch.from_numpy(np.ascontiguousarray(x.imag)).to(dev)
+        got = cnn_trunk(i, q, convs)
+        torch.cuda.synchronize()
+        err, ratio = k3_error(got, cnn_trunk_plain(i, q, convs))
+        checks.append({"kernel": "K3", "shape": [b, n], "max_abs_err": err,
+                       "max_err_over_tol": ratio})
+        k3["max_abs_err"] = max(k3["max_abs_err"], err)
+        k3["max_err_over_tol"] = max(k3["max_err_over_tol"], ratio)
+        if (b, n) == (4096, 2048):
+            planes = rotated(i, q)
+
+            def trunk(a, c):
+                return cnn_trunk(a, c, convs)
+
+            def plain(a, c):
+                return cnn_trunk_plain(a, c, convs)
+
+            k3["ms"] = cuda_ms(trunk, planes, 20)
+            k3["warm_l2_ms"] = cuda_ms(trunk, planes[:1], 20)
+            k3["plain_ms"] = cuda_ms(plain, planes, 5)
+            model = random_cnn(torch, seed=21).to(dev)
+            with torch.inference_mode():
+                k3["module_forward_ms"] = cuda_ms(
+                    model, rotated(torch.stack([i, q], dim=1)), 10
+                )
+            k3["library_ms"] = None
+            k3["bound_ms"], k3["bound_by"], k3["bound_parts_ms"] = k3_bound(b, n)
+            k3["shape"] = [b, n]
+    if cnn_trunk.launches <= before:
+        raise AssertionError("the CNN trunk kernel's launch counter did not rise")
+    return k3
 
 
 MODS_POINTS = {
@@ -332,6 +472,7 @@ def main() -> int:
     from amcpy_tpu_torch.models.classifier import AMCClassifier
     from amcpy_tpu_torch.ops import _build
     from amcpy_tpu_torch.ops import features as F
+    from amcpy_tpu_torch.ops.cnn_infer import cnn_head, cnn_trunk
     from amcpy_tpu_torch.ops.fused import (
         extract_features_fused,
         extract_features_fused_any,
@@ -340,6 +481,7 @@ def main() -> int:
     from amcpy_tpu_torch.preprocessing import Standardizer
     from amcpy_tpu_torch.serve import AMCPipeline
     from amcpy_tpu_torch.train.checkpoint import save_checkpoint
+    from amcpy_tpu_torch.train.evaluate import evaluate_by_snr, evaluate_by_snr_raw
     from amcpy_tpu_torch.utils.metrics import MetricsLogger
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -354,13 +496,15 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    lib = _build.build("features")
+    with ThreadPoolExecutor(len(_build.SIGNATURES)) as pool:
+        libs = list(pool.map(_build.build, _build.SIGNATURES))
     ptxas = [
-        line.strip() for line in lib.with_suffix(".log").read_text().splitlines()
+        line.strip() for lib in libs
+        for line in lib.with_suffix(".log").read_text().splitlines()
         if "registers" in line or "spill" in line or "Compiling entry" in line
     ]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas})
+          "sources": list(_build.SIGNATURES), "ptxas": ptxas})
 
     rows = phase_kernels(torch, dev)
 
@@ -381,11 +525,13 @@ def main() -> int:
         def counts() -> dict[str, int]:
             return {"fused": extract_features_fused.launches,
                     "pallas": extract_features_pallas.launches,
+                    "cnn_trunk": cnn_trunk.launches,
                     "reroutes": extract_features_fused_any.reroutes}
 
         def zero_counts() -> None:
             extract_features_fused.launches = 0
             extract_features_pallas.launches = 0
+            cnn_trunk.launches = 0
             extract_features_fused_any.reroutes = 0
 
         # each path is driven with every count set to 0 just before it and
@@ -529,6 +675,110 @@ def main() -> int:
               "requests": requests, "split_4096_complex_ms": split_4096,
               "stream_frames": int(preds.shape[0]),
               "launches": {k: v for k, (_, v) in paths.items()}})
+
+        # ---- path 4: CNN serving through K3 --------------------------------
+        zero_counts()
+        identity = Standardizer(np.zeros(1, np.float32), np.ones(1, np.float32))
+        cnn = random_cnn(torch, seed=5)
+        save_checkpoint(cfg, "smoke_cnn", cnn, identity)
+        cpipe = AMCPipeline.from_checkpoint(cfg, "smoke_cnn", device=dev)
+        cmodule = AMCPipeline.from_checkpoint(
+            cfg.replace(compute={"kernel": "xla"}), "smoke_cnn", device=dev
+        )
+        if cpipe._kernel != "fused" or cpipe._folded is None:
+            raise AssertionError("CNN serving did not resolve to the trunk kernel")
+        if cmodule._folded is not None:
+            raise AssertionError('kernel="xla" did not take the module forward')
+        folded = cpipe._folded
+        cnn_requests = []
+
+        def serve_cnn(xr, name, size, reps):
+            """One checked request (against the module forward and against
+            the plain trunk plus head), then ``reps`` timed ones."""
+            from amcpy_tpu_torch.ops.cnn_infer import cnn_trunk_plain
+
+            first_ms = timed(lambda: cpipe.logits(xr))
+            before = counts()
+            out = cpipe.logits(xr)
+            launched = {k: v - before[k] for k, v in counts().items()}
+            ref = cmodule.logits(xr)
+            top2 = ref.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 0.16
+            differs = out.argmax(-1) != ref.argmax(-1)
+            with torch.inference_mode():
+                planes = cpipe._to_device(xr)
+                plain_logits = cnn_head(cnn_trunk_plain(*planes, folded["convs"]),
+                                        folded["dense"])
+            plain_err, plain_ratio = k3_error(out, plain_logits)
+            ms = sorted(timed(lambda: cpipe.logits(xr)) for _ in range(reps))
+            cnn_requests.append({
+                "route": name, "frames": size, "first_ms": first_ms,
+                "ms_median": ms[len(ms) // 2], "ms_max": ms[-1], "reps": reps,
+                "launches": launched,
+                "max_logit_diff_vs_module": float((out - ref).abs().max()),
+                "argmax_differs_clear_margin": int((differs & clear).sum()),
+                "argmax_differs_small_margin": int((differs & ~clear).sum()),
+                "max_logit_diff_vs_plain": plain_err,
+                "plain_err_over_tol": plain_ratio,
+            })
+            if (not torch.allclose(out, ref, atol=0.08, rtol=0)
+                    or bool((differs & clear).any()) or plain_ratio > 1.0):
+                raise AssertionError(f"CNN serving {name} x{size} disagrees: "
+                                     f"{cnn_requests[-1]}")
+
+        for size, reps in ((1, 21), (100, 21), (4096, 11)):
+            xr = flat[order[:size]]
+            serve_cnn(xr, "cnn_trunk/complex", size, reps)
+            serve_cnn(F.to_planar(xr), "cnn_trunk/planar", size, reps)
+        # the whole dataset in 4096-frame requests, host layout and copy
+        # included
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for start in range(0, n_frames, 4096):
+            cpipe.logits(flat[start : start + 4096])
+        torch.cuda.synchronize()
+        dataset_s = time.perf_counter() - t0
+        x = flat[order[:4096]]
+        planes = cpipe._to_device(x)
+        pooled = cnn_trunk(*planes, folded["convs"])
+        cnn_stages = {
+            "to_device": lambda: cpipe._to_device(x),
+            "trunk": lambda: cnn_trunk(*planes, folded["convs"]),
+            "head": lambda: cnn_head(pooled, folded["dense"]),
+        }
+        with torch.inference_mode():
+            cnn_split = {
+                k: sorted(timed(fn) for _ in range(11))[5] for k, fn in cnn_stages.items()
+            }
+        cnn_preds = cpipe.classify_stream(capture)
+        if not np.array_equal(cnn_preds, cpipe.predict(stream_frames)):
+            raise AssertionError("CNN classify_stream disagrees with predict")
+        paths["serving_cnn"] = ("cnn_trunk", counts())
+        emit({"phase": "serving_cnn", "module_atol": 0.08, "clear_margin": 0.16,
+              "plain_tolerance": f"{K3_TOL}*(1 + |want|)",
+              "requests": cnn_requests, "dataset_frames": n_frames,
+              "dataset_s": dataset_s, "dataset_frames_per_s": n_frames / dataset_s,
+              "split_4096_complex_ms": cnn_split,
+              "stream_frames": int(cnn_preds.shape[0]),
+              "launches": paths["serving_cnn"][1]})
+
+        # ---- evaluation (module forwards, no serving kernel) ---------------
+        zero_counts()
+        t0 = time.perf_counter()
+        acc_mlp = evaluate_by_snr(model, scaler, results, cfg, device=dev)
+        mlp_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        acc_cnn = evaluate_by_snr_raw(cnn, data, cfg, device=dev)
+        cnn_s = time.perf_counter() - t0
+        emit({"phase": "evaluation", "mlp_evaluate_by_snr_s": mlp_s,
+              "cnn_evaluate_by_snr_raw_s": cnn_s, "frames": n_frames,
+              "mlp_mean_acc": float(acc_mlp.mean()),
+              "cnn_mean_acc": float(acc_cnn.mean()), "launches": counts()})
+        for acc in (acc_mlp, acc_cnn):
+            if (acc.shape != (6, 16) or not np.isfinite(acc).all()
+                    or acc.min() < 0 or acc.max() > 1):
+                raise AssertionError(f"accuracy matrix {acc.shape} out of range")
+
         for path, (key, c) in paths.items():
             if c[key] == 0 or c["reroutes"]:
                 raise AssertionError(f"path {path} did not run through {key}: {c}")
@@ -536,18 +786,21 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
 
     meta = {
-        "fused": ("amc_fused_features (K1)", "amcpy_tpu/ops/fused.py:267"),
-        "pallas": ("amc_stats_features (K2)", "amcpy_tpu/ops/pallas_features.py:73"),
+        "fused": ("amc_fused_features (K1)", "amcpy_tpu/ops/fused.py:267",
+                  "amcpy_tpu_torch/csrc/features.cu"),
+        "pallas": ("amc_stats_features (K2)", "amcpy_tpu/ops/pallas_features.py:73",
+                   "amcpy_tpu_torch/csrc/features.cu"),
+        "cnn_trunk": ("amc_cnn_trunk (K3)", "amcpy_tpu/ops/cnn_infer.py:109",
+                      "amcpy_tpu_torch/csrc/cnn_trunk.cu"),
     }
-    per_request = {r["route"]: r["launches"] for r in requests
+    per_request = {r["route"]: r["launches"] for r in requests + cnn_requests
                    if r["frames"] == 4096 and r["route"].endswith("/complex")}
     kernels = []
     for key, r in rows.items():
-        name, replaces = meta[key]
+        name, replaces, source = meta[key]
         by_path = {path: c[key] for path, (_, c) in paths.items()}
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "amcpy_tpu_torch/csrc/features.cu",
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             # summed over the paths that run through this kernel
             "launches": sum(c[key] for k, c in paths.values() if k == key),
@@ -561,6 +814,10 @@ def main() -> int:
             "library_ms": r["library_ms"], "shape": r["shape"],
             # least time of K1's own matrix-product DFT (not a bound)
             "design_ops_ms": r.get("design_ops_ms"),
+            # K3: the module forward's time on the same frames, and the
+            # three times its bound is the largest of
+            "module_forward_ms": r.get("module_forward_ms"),
+            "bound_parts_ms": r.get("bound_parts_ms"),
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -64,3 +64,15 @@ def test_library_name_follows_the_sources(build_dir, monkeypatch, tmp_path):
     assert edited != first
     (csrc / "common.cuh").write_text("#pragma once\n")
     assert _build._lib_path("features") != edited
+
+
+def test_every_source_has_its_entry_points():
+    """Each ``csrc/*.cu`` is a library with ctypes signatures, and each
+    library exports ``amc_error_string`` for ``_build.check``."""
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert sources == sorted(_build.SIGNATURES) == ["cnn_trunk", "features"]
+    for name, fns in _build.SIGNATURES.items():
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert "amc_error_string" in fns
+        for fn in fns:
+            assert f" {fn}(" in text, (name, fn)

@@ -9,6 +9,13 @@ card and no JAX. ``tests/conftest.py`` imports JAX, so run it there with
 Tolerances (``tests/test_fused.py``): kernel against its plain PyTorch
 version on the card ``2e-4 * term_scales + 2e-5 * |want|``; kernel against
 the float64 oracle ``1e-4 * term_scales + 1e-5 * |want|``.
+
+The CNN trunk kernel (K3) against its plain version: ``|got - want| <=
+2e-2 + 2e-2 * |want|`` on the pooled features. Both round the activations
+of layers 0 and 1 to bf16, from float32 values whose last bits differ
+(float32 sums in another order, ``rsqrtf``); where a value lies next to a
+bf16 rounding boundary the two round it 2^-8 apart, and the next layer
+carries that on.
 """
 
 import numpy as np
@@ -17,6 +24,7 @@ import torch
 
 from amcpy_tpu_torch.config import Config
 from amcpy_tpu_torch.ops import features as F
+from amcpy_tpu_torch.ops.cnn_infer import cnn_trunk, cnn_trunk_plain
 from amcpy_tpu_torch.ops.fused import extract_features_fused, split_planes
 from amcpy_tpu_torch.ops.pallas_features import extract_features_pallas
 
@@ -137,3 +145,98 @@ def test_cuda_tensor_without_kernel_library_raises(cuda, monkeypatch, tmp_path):
         extract_features_fused(i, i)
     with pytest.raises(RuntimeError, match="nvcc"):
         extract_features_pallas(torch.zeros((4, 2, 256), device=cuda))
+
+
+K3_TOL = 2e-2
+DEFAULT_WIDTHS = (2, 32, 64, 128)
+
+
+def _stack(widths, dev, seed=1):
+    """A folded k=1 stack: (C_out, C_in) weights of scale 1/sqrt(C_in) and
+    (C_out, 1) biases, numpy-seeded."""
+    rng = np.random.default_rng(seed)
+    return [
+        (torch.from_numpy(rng.normal(0, a**-0.5, (b, a)).astype(np.float32)).to(dev),
+         torch.from_numpy(rng.normal(0, 0.1, (b, 1)).astype(np.float32)).to(dev))
+        for a, b in zip(widths[:-1], widths[1:])
+    ]
+
+
+def _assert_trunk_matches(i, q, convs):
+    launches = cnn_trunk.launches
+    got = cnn_trunk(i, q, convs)
+    torch.cuda.synchronize()
+    assert cnn_trunk.launches == launches + 1
+    want = cnn_trunk_plain(i, q, convs)
+    assert got.shape == want.shape == (i.shape[0], 2 * convs[-1][0].shape[0])
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=K3_TOL, rtol=K3_TOL)
+
+
+@pytest.mark.parametrize(
+    "b,n", [(4096, 2048), (1000, 2048), (37, 1024), (64, 256), (5, 1000), (3, 100)]
+)
+def test_cnn_trunk_matches_plain_on_card(cuda, b, n):
+    """The smoke's four shapes, and time axes that end in a ragged tile
+    (1000 and 100 samples are not multiples of the kernel's 64)."""
+    x = _frames(b, n, seed=b + n)
+    _assert_trunk_matches(*_planes(x, cuda), _stack(DEFAULT_WIDTHS, cuda))
+
+
+@pytest.mark.parametrize("log_scale", [-6.0, 6.0])
+def test_cnn_trunk_extreme_scales(cuda, log_scale):
+    """Frames at exp(+-6) neither overflow nor underflow the sum of squares."""
+    x = _frames(64, 2048, seed=3, spread=0.0) * np.float32(np.exp(log_scale))
+    _assert_trunk_matches(*_planes(x, cuda), _stack(DEFAULT_WIDTHS, cuda))
+
+
+@pytest.mark.parametrize("widths", [(2, 32), (2, 32, 64), (2, 20), (2, 16, 48, 32, 16)])
+def test_cnn_trunk_other_stacks(cuda, widths):
+    """L = 1 (no tensor-core layer, any width), L = 2, and a deeper stack."""
+    x = _frames(50, 700, seed=4)
+    _assert_trunk_matches(*_planes(x, cuda), _stack(widths, cuda))
+
+
+@pytest.mark.parametrize("widths", [(2, 24, 40), (2, 32, 64, 72), (2,) + (16,) * 9])
+def test_cnn_trunk_refuses_widths_it_cannot_hold(cuda, widths):
+    """Layers after the first need multiples of 16 channels; at most eight
+    layers. The kernel refuses, never computes a wrong answer."""
+    i, q = _planes(_frames(4, 64, seed=5), cuda)
+    launches = cnn_trunk.launches
+    with pytest.raises(ValueError, match="cannot hold"):
+        cnn_trunk(i, q, _stack(widths, cuda))
+    assert cnn_trunk.launches == launches
+
+
+def test_cnn_pipeline_launches_the_trunk_once_per_request(cuda, tmp_path):
+    """A default IQConvNet checkpoint under kernel="auto" runs K3 once per
+    request; a k>1 or float32 checkpoint runs the module forward (no
+    launch). The two routes agree within the JAX package's 0.08."""
+    from amcpy_tpu_torch.models.cnn import IQConvNet
+    from amcpy_tpu_torch.preprocessing import Standardizer
+    from amcpy_tpu_torch.serve import AMCPipeline
+    from amcpy_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg = Config().replace(paths={"root": str(tmp_path)}, signals={"frame_size": 512})
+    identity = Standardizer(np.zeros(1, np.float32), np.ones(1, np.float32))
+    torch.manual_seed(0)
+    for name, arch in (("default", {}), ("wide", {"kernel_sizes": (3, 1, 1)}),
+                       ("f32", {"dtype": "float32"})):
+        save_checkpoint(cfg, name, IQConvNet(6, **arch), identity)
+    x = _frames(300, 512, seed=6, spread=1.0)
+    pipe = AMCPipeline.from_checkpoint(cfg, "default", device=cuda)
+    assert pipe._kernel == "fused" and pipe._folded is not None
+    for frames in (x, F.to_planar(x), x[:1]):
+        launches = cnn_trunk.launches
+        pipe.logits(frames)
+        assert cnn_trunk.launches == launches + 1
+    module = AMCPipeline.from_checkpoint(
+        cfg.replace(compute={"kernel": "xla"}), "default", device=cuda
+    )
+    torch.testing.assert_close(pipe.logits(x), module.logits(x), atol=0.08, rtol=0)
+    for name in ("wide", "f32"):
+        other = AMCPipeline.from_checkpoint(cfg, name, device=cuda)
+        assert other._folded is None
+        launches = cnn_trunk.launches
+        assert other.logits(x).shape == (300, 6)
+        assert cnn_trunk.launches == launches

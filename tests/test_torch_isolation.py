@@ -31,6 +31,8 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "amcpy_tpu_torch.ops.fused" in mods and "amcpy_tpu_torch.serve" in mods
+    assert "amcpy_tpu_torch.ops.cnn_infer" in mods
+    assert "amcpy_tpu_torch.train.evaluate" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -67,16 +69,27 @@ def _frames():
 def _entry_points(tmp_path):
     from amcpy_tpu_torch.extraction import extract_batch, prepare_frames, run_extraction
     from amcpy_tpu_torch.models.classifier import AMCClassifier
+    from amcpy_tpu_torch.models.cnn import IQConvNet
     from amcpy_tpu_torch.ops.features import extract_features
     from amcpy_tpu_torch.preprocessing import Standardizer
     from amcpy_tpu_torch.serve import AMCPipeline
     from amcpy_tpu_torch.train.checkpoint import save_checkpoint
+    from amcpy_tpu_torch.train.evaluate import (
+        confusion_counts,
+        evaluate_by_snr,
+        evaluate_by_snr_raw,
+    )
     from amcpy_tpu_torch.utils.device import resolve_device
 
     cfg = Config().replace(paths={"root": str(tmp_path)})
     scaler = Standardizer(np.zeros(6, np.float32), np.ones(6, np.float32))
     model = AMCClassifier(6)
     save_checkpoint(cfg, "m", model, scaler)
+    cnn = IQConvNet(6)
+    save_checkpoint(cfg, "cnn", cnn, Standardizer(np.zeros(1), np.ones(1)))
+    mods = cfg.signals.modulations_with_noise
+    raw = {m: np.ones((1, 1, 256), np.complex64) for m in mods}
+    feats = {m: np.ones((1, 1, 18), np.float32) for m in mods}
     return {
         "resolve_device": lambda: resolve_device(),
         "extract_features": lambda: extract_features(_frames()),
@@ -85,6 +98,15 @@ def _entry_points(tmp_path):
         "run_extraction": lambda: run_extraction(cfg),
         "AMCPipeline": lambda: AMCPipeline(model, scaler, cfg),
         "AMCPipeline.from_checkpoint": lambda: AMCPipeline.from_checkpoint(cfg, "m"),
+        "AMCPipeline(cnn)": lambda: AMCPipeline(cnn, scaler, cfg),
+        "AMCPipeline.from_checkpoint(cnn)": lambda: AMCPipeline.from_checkpoint(
+            cfg, "cnn"
+        ),
+        "evaluate_by_snr": lambda: evaluate_by_snr(model, scaler, feats, cfg),
+        "evaluate_by_snr_raw": lambda: evaluate_by_snr_raw(cnn, raw, cfg),
+        "confusion_counts": lambda: confusion_counts(
+            cnn, np.ones((2, 2, 256), np.float32), np.zeros(2, int), 6
+        ),
     }
 
 

@@ -205,10 +205,10 @@ def test_checkpoint_round_trip(tmp_path):
 
 def test_checkpoint_refuses_unported_family(tmp_path):
     _, pipe = _pipelines(tmp_path, "relu")
-    save_checkpoint(pipe.cfg, "cnn", pipe.model, pipe.scaler,
-                    model_meta={"family": "cnn"})
-    with pytest.raises(NotImplementedError, match="family"):
-        load_checkpoint(pipe.cfg, "cnn")
+    save_checkpoint(pipe.cfg, "tf", pipe.model, pipe.scaler,
+                    model_meta={"family": "transformer"})
+    with pytest.raises(NotImplementedError, match="family 'transformer'"):
+        load_checkpoint(pipe.cfg, "tf")
 
 
 def test_classify_stream_matches_predict(tmp_path):
