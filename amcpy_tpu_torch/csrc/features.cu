@@ -5,44 +5,65 @@
 //    left at zero for a gamma_max epilogue).
 // K1 amc_fused_features replaces the Pallas kernel
 //    amcpy_tpu/ops/fused.py::_fused_kernel_entry (the same statistics plus
-//    gamma_max = max|DFT|^2 / N by a two-stage N1 x N2 DFT).
+//    gamma_max = max|DFT|^2 / N of the N1 x N2 factorization).
 //
-// Both share frame_stats(), which takes one frame held in shared memory
-// and computes the statistics with the whole thread block.
+// Both give one thread block of 256 threads to one frame and share
+// frame_stats(), which reads the frame from device memory once, keeps it
+// (and its phase) in shared memory and computes the statistics in three
+// passes.
 //
 // What bounds them on an H100:
-//  * K2 reads 8*N bytes per frame once and does ~100 operations per
-//    sample: memory-bound. One block of 256 threads owns one frame, loads
-//    it into shared memory (12*N bytes with the phase buffer), and makes
-//    three passes over shared memory (means; centred sums and moments;
-//    centred fourth powers), so the kurtosis is taken from centred sums
-//    as in the plain version, not from single-pass raw moments.
-//  * K1 adds the stage-2 DFT, 8*N1*N2^2 real FLOP per frame (4.2 MFLOP at
-//    N = 2048 = 8 x 256), against 16 KB of input: operations-bound at the
-//    card's FP32 rate. A block owns a tile of up to 4 frames. It computes
-//    each frame's statistics, then overwrites the frame in place with the
-//    stage-1 (N1-point DFT) x twiddle output, then runs stage 2 as an
-//    FP32-FMA product of the (tile x N1) x N2 rows against the N2 x N2
-//    table, streamed from device memory (L2) through shared memory in
-//    K-blocks so that every table element loaded serves all rows of the
-//    tile. max|X|^2 is reduced per frame in registers, then with a shared
-//    atomicMax. Tensor cores, TMA and an FFT are later work.
+//  * K2 reads 8*N bytes per frame once and does ~80 operations per sample:
+//    the bytes bind (0.020 ms at 4096 x 2048), but a block is bound by its
+//    instructions and its three passes separated by block reductions. So
+//    every instruction counts: a frame of N <= 2048 keeps each sample's
+//    normalized amplitude and wrapped frequency in registers (computed
+//    once, not once per pass); the wrap is one conditional step of 2pi and
+//    the phase a branch-free polynomial (no library call with a division
+//    and slow paths); max|x| rides in the first reduction; the reductions
+//    reduce-scatter across lanes, take one barrier each and broadcast only
+//    what the next pass needs; four blocks share a SM (kMinBlocks). The
+//    kurtosis is still taken from centred sums, as in the plain version.
+//  * K1 adds gamma_max. Where N2 is a power of two (every power-of-two N,
+//    e.g. 2048 = 8 x 256, 16384 = 32 x 512) it is an in-place
+//    decimation-in-frequency FFT in shared memory, after the statistics have
+//    read the frame: radix-8 passes and a last radix-8, -4 or -2 pass, one
+//    butterfly per thread at a time, its values in registers, the shared
+//    frame carrying the exchange between passes. A pass over sub-transforms
+//    of length L multiplies output k of butterfly j by W_L^{jk}, read from
+//    a host-built table of W_N^m (float64 rounded once to float32). Where N1
+//    is a power of two too, its N1-point stage is the first passes (for
+//    N1 = 8 exactly one radix-8 pass with the W_N^{k1 n2} twiddle); else it
+//    is the direct N1-point DFT with the host's W_N1 and twiddle tables,
+//    and the passes run over each row of N2. The spectrum comes out in
+//    digit-reversed order, which does not change its maximum, so it is
+//    never reordered; the last pass keeps only max|X|^2 in registers. An
+//    FFT needs 5 N log2 N operations (0.11 MFLOP per frame at N = 2048).
+//    Where N2 is not a power of two (N = 1000 = 8 x 125, N = 88 = 8 x 11)
+//    the same kernel template runs the direct stage 2: an FP32 product of
+//    the N1 rows against the N2 x N2 table, streamed from L2 through shared
+//    memory in K-blocks. N2 alone picks the path (amc_fused_gmax_path);
+//    there is no fallback between them.
 //
 // Numerics (held to the plain PyTorch version, amcpy_tpu_torch/ops/features.py):
 //  * floor-mod: the wrapped phase difference is mod(d + pi, 2pi) - pi with
-//    jnp.mod / torch.remainder semantics; fmodf truncates toward zero, so a
-//    negative remainder is moved up by 2pi (d + pi < 0 does occur);
+//    jnp.mod / torch.remainder semantics. Both phases lie in [-pi, pi], so
+//    t = d + pi lies in [-pi, 3pi] and one conditional step of 2pi is the
+//    floor-mod that fmodf plus a sign fix would give: t - 2pi is exact
+//    (Sterbenz), t + 2pi the same rounded addition;
 //  * the next-sample phase is read from shared memory (phase[k+1] for
 //    k < N-1): the statistics of the phase difference run over N-1 values;
-//  * atan2f follows np.angle / torch.atan2 on signed zero
-//    (atan2f(-0.0f, -1.0f) = -pi), unlike the Pallas kernels' own _atan2;
+//  * the phase (phase_of) follows np.angle / torch.atan2 on signed zero
+//    (atan2(-0.0, -1) = -pi) and is exactly +-pi on the negative real axis,
+//    unlike the Pallas kernels' own _atan2; elsewhere it is within ~1e-7
+//    rad of atan2f;
 //  * moments are taken on x / max|x| and the cumulants rescaled by
 //    s^2 / s^4 / s^6, so x^6 terms stay inside float32; gamma_max uses the
 //    raw frame (the DFT is linear);
-//  * the DFT tables come from the host (float64 rounded to float32), not
-//    from __sinf/__cosf;
-//  * a ragged batch needs no padding: a block only touches the frames it
-//    owns (nf <= tile).
+//  * every DFT weight and twiddle comes from the host (float64 rounded to
+//    float32), not from __sinf/__cosf; the butterflies' own constants are
+//    +-1, +-i and sqrt(1/2);
+//  * a ragged batch needs no padding: one block per frame.
 //
 // Every entry point launches on the stream it is given, allocates
 // nothing, and returns cudaGetLastError() (0 on success).
@@ -57,9 +78,14 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kNumFeatures = 18;
 constexpr int kRedValues = 19;  // widest block reduction (pass 2)
+constexpr int kRedFloats = 2 * kWarps * kRedValues;  // two alternating buffers
+// samples a thread keeps in registers between the statistics' passes: a
+// frame of up to kThreads * kCached samples is read from shared memory
+// and transformed once; a longer one is recomputed in each pass
+constexpr int kCached = 8;
 
-// Stage-2 tiling: a 8 x 32 thread grid, each thread owning 4 x 4 complex
-// outputs, so one pass covers 32 rows x 128 columns of the DFT output.
+// Direct stage 2 (N2 not a power of two): a 8 x 32 thread grid, each thread
+// owning 4 x 4 complex outputs, so one pass covers 32 rows x 128 columns.
 constexpr int kTR = 8;
 constexpr int kTC = 32;
 constexpr int kRM = 4;
@@ -67,96 +93,207 @@ constexpr int kRN = 4;
 constexpr int kTileRows = kTR * kRM;
 constexpr int kTileCols = kTC * kRN;
 constexpr int kKB = 32;  // rows of the N2 x N2 table staged per K-block
-constexpr int kMaxTileFrames = 4;
 constexpr size_t kSmemLimit = 232448;  // 227 KB a block may use on sm_90
 
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
+constexpr float kHalfPi = 1.57079632679489661923f;
+constexpr float kInvTwoPi = 0.15915494309189533577f;
+constexpr float kSqrtHalf = 0.70710678118654752440f;
 
-// Sum of V values over the block; every thread receives the totals.
-template <int V>
-__device__ __forceinline__ void block_sum(float (&v)[V], float* red) {
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      v[j] += __shfl_xor_sync(0xffffffffu, v[j], off);
-    }
-  }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int j = 0; j < V; ++j) red[warp * V + j] = v[j];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w * V + j];
-    v[j] = s;
-  }
-  __syncthreads();
+// Shared-memory place of frame sample x: bits 2-4 XOR bits 5-7, a
+// permutation inside each aligned group of 32 floats (a plane is padded to
+// a multiple of 32). The FFT's strided pass at L = 32 and its last pass's
+// 16-byte loads then hit 32 distinct banks; a thread's own samples in the
+// statistics (k = j * kThreads + tid) move by a constant XOR.
+__device__ __forceinline__ int sw(int x) { return x ^ (((x >> 5) & 7) << 2); }
+
+// Samples of a frame plane in shared memory, padded for sw().
+__host__ __device__ __forceinline__ int plane_floats(int n) {
+  return (n + 31) & ~31;
 }
 
-__device__ __forceinline__ float block_max(float v, float* red) {
+// One reduce-scatter step of block_reduce at half H, then the next ones
+// (a template recursion, so that every index into a[] is a constant and
+// a[] stays in registers).
+template <int H, int P>
+__device__ __forceinline__ void scatter_steps(float (&a)[P], int lane) {
+  if constexpr (H >= 1) {
+    const bool hi = (lane & H) != 0;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    for (int i = 0; i < H; ++i) {
+      const float send = hi ? a[i] : a[i + H];
+      const float keep = hi ? a[i + H] : a[i];
+      a[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+    }
+    scatter_steps<H / 2, P>(a, lane);
   }
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float m = red[0];
+}
+
+// Block reduction of V <= 32 per-thread values: sums, and with kLastIsMax
+// a maximum as the last value. Returns the totals spread over the lanes:
+// lane j of every warp holds total j (j < V); lane_value() hands one to the
+// whole warp, so a caller broadcasts only what it needs.
+//  * Within a warp the sums are reduce-scattered: at the step of half h,
+//    each lane keeps the half of its values that lane bit h selects and adds
+//    the partner's (lane ^ h) copy of that half, so S sums take about S
+//    shuffles, not 5 S; lanes then hold the sum of value lane % P over
+//    their group, and a butterfly over the higher lane bits finishes it.
+//  * Lane j writes the warp's total j; after the barrier lane j combines
+//    value j over the warps (8 shared loads a thread).
+//  * One barrier: callers alternate between the two halves of the
+//    reduction scratch, so a buffer is only written again after a later
+//    reduction's barrier.
+template <int V, bool kLastIsMax = false>
+__device__ __forceinline__ float block_reduce(const float (&v)[V],
+                                              float* red) {
+  static_assert(V <= 32, "one value per lane");
+  constexpr int S = kLastIsMax ? V - 1 : V;  // the sums
+  constexpr int P = S <= 1 ? 1 : S <= 2 ? 2 : S <= 4 ? 4 : S <= 8 ? 8
+                  : S <= 16 ? 16 : 32;
+  const int lane = threadIdx.x & 31;
+  float a[P];
 #pragma unroll
-  for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w]);
+  for (int i = 0; i < P; ++i) a[i] = i < S ? v[i] : 0.f;
+  scatter_steps<P / 2, P>(a, lane);
+  float t = a[0];
+#pragma unroll
+  for (int off = P; off < 32; off *= 2) {
+    t += __shfl_xor_sync(0xffffffffu, t, off);
+  }
+  if constexpr (kLastIsMax) {
+    float m = v[V - 1];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    }
+    if (lane == V - 1) t = m;  // lane V - 1 = S is not needed for a sum
+  }
+  if (lane < V) red[(threadIdx.x >> 5) * V + lane] = t;
   __syncthreads();
-  return m;
+  float r = 0.f;
+  if (lane < V) {
+    const bool mx = kLastIsMax && lane == V - 1;
+    r = red[lane];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      const float o = red[w * V + lane];
+      r = mx ? fmaxf(r, o) : r + o;
+    }
+  }
+  return r;
+}
+
+// Total j of a block_reduce() result, for the whole warp.
+__device__ __forceinline__ float lane_value(float t, int j) {
+  return __shfl_sync(0xffffffffu, t, j);
+}
+
+// The phase of (x, y) as np.angle / torch.atan2 give it: exactly +-pi on
+// the negative real axis, with numpy's signed zero (atan2(-0, -1) = -pi,
+// atan2(+-0, -0) = +-pi, atan2(+-0, +0) = +-0), +-pi/2 on the imaginary
+// axis. atan(t) on [0, 1] is an odd polynomial of degree 17 (its own error
+// below 1e-8 rad; rounding in float32 adds about 1e-7), t = min/max by a
+// fast reciprocal: no division and no branch, where atan2f takes both.
+__device__ __forceinline__ float phase_of(float y, float x) {
+  const float ax = fabsf(x);
+  const float ay = fabsf(y);
+  const float hi = fmaxf(ax, ay);
+  const float t = hi > 0.f ? __fdividef(fminf(ax, ay), hi) : 0.f;
+  const float s = t * t;
+  float r = 0.002599439373283806f;
+  r = fmaf(r, s, -0.015040467235207897f);
+  r = fmaf(r, s, 0.04097081421577039f);
+  r = fmaf(r, s, -0.07353808503419362f);
+  r = fmaf(r, s, 0.10567844936569822f);
+  r = fmaf(r, s, -0.14184426542113462f);
+  r = fmaf(r, s, 0.19990207595039158f);
+  r = fmaf(r, s, -0.33332979104240085f);
+  r = fmaf(r * s, t, t);
+  if (ay > ax) r = kHalfPi - r;
+  if (signbit(x)) r = kPi - r;
+  return copysignf(r, y);
 }
 
 // Instantaneous frequency of one phase step d = phase[k+1] - phase[k]:
 // the principal value of d in (-pi, pi], divided by 2pi. np.unwrap's edge
 // rule maps a wrapped -pi with a positive raw difference to +pi.
 __device__ __forceinline__ float wrapped_freq(float d) {
-  float r = fmodf(d + kPi, kTwoPi);  // truncates toward zero ...
-  if (r < 0.f) r += kTwoPi;  // ... so make it a floor-mod
-  float w = r - kPi;
+  float t = d + kPi;  // in [-pi, 3pi]: one step of 2pi is the floor-mod
+  if (t >= kTwoPi) {
+    t -= kTwoPi;
+  } else if (t < 0.f) {
+    t += kTwoPi;
+  }
+  float w = t - kPi;
   if (w == -kPi && d > 0.f) w = kPi;
-  return w / kTwoPi;
+  return w * kInvTwoPi;
 }
 
 __device__ __forceinline__ float cabs(float re, float im) {
   return sqrtf(re * re + im * im);
 }
 
-// Features 2..18 of one frame (xi, xq: N samples each, in shared memory)
-// into out[1..17]. ph is N floats of shared scratch for the phase; red
-// holds kWarps * kRedValues floats. Called by every thread of the block.
-__device__ void frame_stats(const float* __restrict__ xi,
-                            const float* __restrict__ xq,
+// Calls f(j, k) for each sample k of this thread: k = j * kThreads + tid.
+// With kPer > 0 the loop is unrolled and j indexes the thread's registers.
+template <int kPer, typename F>
+__device__ __forceinline__ void for_samples(int n, F&& f) {
+  if constexpr (kPer > 0) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int k = j * kThreads + threadIdx.x;
+      if (k < n) f(j, k);
+    }
+  } else {
+    for (int k = threadIdx.x; k < n; k += kThreads) f(0, k);
+  }
+}
+
+// Features 2..18 of one frame into out[1..17] (written by thread 0). The
+// frame's I and Q (N samples each, device memory) are read once into the
+// shared xi, xq (at sw(k)); ph receives the phase; red holds kRedFloats.
+// kPer > 0 (N <= kThreads * kPer) keeps each sample's normalized amplitude
+// and wrapped frequency in registers. Called by every thread of the block; on
+// return the last barrier has passed every read of xi, xq and ph.
+template <int kPer>
+__device__ void frame_stats(const float* __restrict__ gi,
+                            const float* __restrict__ gq,
+                            float* __restrict__ xi, float* __restrict__ xq,
                             float* __restrict__ ph, float* red, int n,
                             bool normalize, float* __restrict__ out) {
+  constexpr int kSlots = kPer > 0 ? kPer : 1;
+  float cn_c[kSlots];  // pass 1: |x|; from pass 2 on: |x| / mean|x| - 1
+  float fr_c[kSlots];  // wrapped frequency of the step k -> k+1
+  float* red0 = red;
+  float* red1 = red + kWarps * kRedValues;
   const float fn = static_cast<float>(n);
   const float fn1 = static_cast<float>(n - 1);
 
-  // pass 1: amplitude, phase; sums for the means; max |x|
-  float s1[3] = {0.f, 0.f, 0.f};
-  float amax = 0.f;
-  for (int k = threadIdx.x; k < n; k += kThreads) {
-    const float i = xi[k];
-    const float q = xq[k];
+  // pass 1: the frame into shared memory; amplitude, phase; sums for the
+  // means and max |x| in one reduction
+  float s1[4] = {0.f, 0.f, 0.f, 0.f};
+  for_samples<kPer>(n, [&](int j, int k) {
+    const float i = __ldg(gi + k);
+    const float q = __ldg(gq + k);
+    xi[sw(k)] = i;
+    xq[sw(k)] = q;
     const float a = sqrtf(i * i + q * q);
-    const float p = atan2f(q, i);
+    const float p = phase_of(q, i);
     ph[k] = p;
+    if constexpr (kPer > 0) cn_c[j] = a;
     s1[0] += a;
     s1[1] += fabsf(p);
     s1[2] += p;
-    amax = fmaxf(amax, a);
-  }
-  block_sum<3>(s1, red);  // its barrier also publishes ph
-  amax = block_max(amax, red);
-  const float mean_a = s1[0] / fn;
-  const float mean_ap = s1[1] / fn;
-  const float mean_p = s1[2] / fn;
+    s1[3] = fmaxf(s1[3], a);
+  });
+  // its barrier also publishes xi, xq, ph
+  const float t1 = block_reduce<4, true>(s1, red0);
+  const float sum_a = lane_value(t1, 0);
+  const float mean_a = sum_a / fn;
+  const float mean_ap = lane_value(t1, 1) / fn;
+  const float mean_p = lane_value(t1, 2) / fn;
+  const float amax = lane_value(t1, 3);
+  const float inv_mean_a = 1.f / mean_a;
   const float s = (normalize && amax > 0.f) ? amax : 1.f;
   const float inv = 1.f / s;
   const float inv2 = inv * inv;
@@ -166,20 +303,33 @@ __device__ void frame_stats(const float* __restrict__ xi,
   float v[kRedValues];
 #pragma unroll
   for (int j = 0; j < kRedValues; ++j) v[j] = 0.f;
-  for (int k = threadIdx.x; k < n; k += kThreads) {
-    const float i = xi[k];
-    const float q = xq[k];
+  for_samples<kPer>(n, [&](int j, int k) {
+    const float i = xi[sw(k)];
+    const float q = xq[sw(k)];
     const float a2r = i * i + q * q;
-    const float a = sqrtf(a2r);
+    float a;
+    if constexpr (kPer > 0) {
+      a = cn_c[j];
+    } else {
+      a = sqrtf(a2r);
+    }
     const float p = ph[k];
     const float dap = fabsf(p) - mean_ap;
     v[0] += dap * dap;
     const float dp = p - mean_p;
     v[1] += dp * dp;
-    const float cn = a / mean_a - 1.f;
+    const float cn = a * inv_mean_a - 1.f;
     v[2] += fabsf(cn);
     v[3] += cn;
-    if (k + 1 < n) v[4] += wrapped_freq(ph[k + 1] - p);
+    float f = 0.f;
+    if (k + 1 < n) {
+      f = wrapped_freq(ph[k + 1] - p);
+      v[4] += f;
+    }
+    if constexpr (kPer > 0) {
+      cn_c[j] = cn;
+      fr_c[j] = f;
+    }
     const float iu = i * inv;
     const float qu = q * inv;
     const float a2 = a2r * inv2;
@@ -204,19 +354,24 @@ __device__ void frame_stats(const float* __restrict__ xi,
     v[16] += x4i * a2;
     v[17] += x2r * a4;
     v[18] += a2 * a4;
-  }
-  block_sum<kRedValues>(v, red);
-  const float mean_acn = v[2] / fn;
-  const float mean_cn = v[3] / fn;
-  const float f_mu = v[4] / fn1;
+  });
+  const float t2 = block_reduce<kRedValues>(v, red1);
+  const float mean_acn = lane_value(t2, 2) / fn;
+  const float mean_cn = lane_value(t2, 3) / fn;
+  const float f_mu = lane_value(t2, 4) / fn1;
 
   // pass 3: centred second and fourth powers (std of |cn|, kurtosis of cn
   // and of the instantaneous frequency)
   float u[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int k = threadIdx.x; k < n; k += kThreads) {
-    const float i = xi[k];
-    const float q = xq[k];
-    const float cn = sqrtf(i * i + q * q) / mean_a - 1.f;
+  for_samples<kPer>(n, [&](int j, int k) {
+    float cn;
+    if constexpr (kPer > 0) {
+      cn = cn_c[j];
+    } else {
+      const float i = xi[sw(k)];
+      const float q = xq[sw(k)];
+      cn = sqrtf(i * i + q * q) * inv_mean_a - 1.f;
+    }
     const float da = fabsf(cn) - mean_acn;
     u[0] += da * da;
     const float c = cn - mean_cn;
@@ -224,14 +379,26 @@ __device__ void frame_stats(const float* __restrict__ xi,
     u[1] += c2;
     u[2] += c2 * c2;
     if (k + 1 < n) {
-      const float fc = wrapped_freq(ph[k + 1] - ph[k]) - f_mu;
+      float f;
+      if constexpr (kPer > 0) {
+        f = fr_c[j];
+      } else {
+        f = wrapped_freq(ph[k + 1] - ph[k]);
+      }
+      const float fc = f - f_mu;
       const float fc2 = fc * fc;
       u[3] += fc2;
       u[4] += fc2 * fc2;
     }
-  }
-  block_sum<5>(u, red);
+  });
+  const float t3 = block_reduce<5>(u, red0);
 
+  // the features from warp 0's copies of the totals, written by thread 0
+  if (threadIdx.x >= 32) return;
+#pragma unroll
+  for (int j = 0; j < kRedValues; ++j) v[j] = lane_value(t2, j);
+#pragma unroll
+  for (int j = 0; j < 5; ++j) u[j] = lane_value(t3, j);
   if (threadIdx.x != 0) return;
   const float f2 = sqrtf(v[0] / fn1);
   const float f3 = sqrtf(v[1] / fn1);
@@ -239,7 +406,7 @@ __device__ void frame_stats(const float* __restrict__ xi,
   const float f_m2 = u[3] / fn1;
   const float f5 = sqrtf(f_m2 * fn1 / (fn1 - 1.f));
   const float f6 = mean_a;
-  const float f7 = sqrtf(s1[0]) / fn;
+  const float f7 = sqrtf(sum_a) / fn;
   const float cn_m2 = u[1] / fn;
   const float f8 = (u[2] / fn) / (cn_m2 * cn_m2);
   const float f9 = (u[4] / fn1) / (f_m2 * f_m2);
@@ -320,21 +487,186 @@ __device__ void frame_stats(const float* __restrict__ xi,
   out[17] = c63;
 }
 
+// Four resident blocks a SM (at most 64 registers a thread): a block waits
+// on its barriers and reductions, so warps in flight, not the registers
+// that would keep more values, set the pace. The same holds for K1's FFT
+// path.
+constexpr int kMinBlocks = 4;
+
 // K2: one block per frame of the packed (B, 2, N) input.
-__global__ void __launch_bounds__(kThreads)
+template <int kPer>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     stats_kernel(const float* __restrict__ iq, float* __restrict__ out, int n,
                  int normalize) {
   extern __shared__ float smem[];
-  float* xi = smem;
-  float* xq = smem + n;
-  float* ph = smem + 2 * n;
-  float* red = smem + 3 * n;
   const float* src = iq + static_cast<size_t>(blockIdx.x) * 2 * n;
-  for (int k = threadIdx.x; k < 2 * n; k += kThreads) smem[k] = src[k];
-  __syncthreads();
   float* row = out + static_cast<size_t>(blockIdx.x) * kNumFeatures;
-  frame_stats(xi, xq, ph, red, n, normalize != 0, row);
+  const int np = plane_floats(n);
+  frame_stats<kPer>(src, src + n, smem, smem + np, smem + 2 * np,
+                    smem + 2 * np + n, n, normalize != 0, row);
   if (threadIdx.x == 0) row[0] = 0.f;
+}
+
+// ---- gamma_max ---------------------------------------------------------
+
+// In-register R-point DFT, R in {2, 4, 8}: y[k] = sum_m x[m] W_R^{mk},
+// outputs in natural order.
+__device__ __forceinline__ void dft2(float& ar, float& ai, float& br,
+                                     float& bi) {
+  const float tr = ar - br;
+  const float ti = ai - bi;
+  ar += br;
+  ai += bi;
+  br = tr;
+  bi = ti;
+}
+
+// DFT4 of (x0, x1, x2, x3) in place.
+__device__ __forceinline__ void dft4(float& r0, float& i0, float& r1,
+                                     float& i1, float& r2, float& i2,
+                                     float& r3, float& i3) {
+  dft2(r0, i0, r2, i2);  // r0 = x0 + x2, r2 = x0 - x2
+  dft2(r1, i1, r3, i3);  // r1 = x1 + x3, r3 = x1 - x3
+  // y0 = a0 + b0, y2 = a0 - b0, y1 = a1 - i b1, y3 = a1 + i b1
+  const float b1r = r3;
+  const float b1i = i3;
+  const float y0r = r0 + r1, y0i = i0 + i1;
+  const float y2r = r0 - r1, y2i = i0 - i1;
+  const float y1r = r2 + b1i, y1i = i2 - b1r;
+  const float y3r = r2 - b1i, y3i = i2 + b1r;
+  r0 = y0r;
+  i0 = y0i;
+  r1 = y1r;
+  i1 = y1i;
+  r2 = y2r;
+  i2 = y2i;
+  r3 = y3r;
+  i3 = y3i;
+}
+
+template <int R>
+__device__ __forceinline__ void dft(float (&re)[R], float (&im)[R]) {
+  if constexpr (R == 2) {
+    dft2(re[0], im[0], re[1], im[1]);
+  } else if constexpr (R == 4) {
+    dft4(re[0], im[0], re[1], im[1], re[2], im[2], re[3], im[3]);
+  } else {
+    static_assert(R == 8, "radix 2, 4 or 8");
+    // even and odd halves, then y[k] = E[k] + W8^k O[k], y[k+4] = E[k] - W8^k O[k]
+    dft4(re[0], im[0], re[2], im[2], re[4], im[4], re[6], im[6]);
+    dft4(re[1], im[1], re[3], im[3], re[5], im[5], re[7], im[7]);
+    float orr[4] = {re[1], re[3], re[5], re[7]};
+    float oi[4] = {im[1], im[3], im[5], im[7]};
+    // W8^1 = sqrt(1/2) (1 - i), W8^2 = -i, W8^3 = sqrt(1/2) (-1 - i)
+    float t;
+    t = kSqrtHalf * (orr[1] + oi[1]);
+    oi[1] = kSqrtHalf * (oi[1] - orr[1]);
+    orr[1] = t;
+    t = oi[2];
+    oi[2] = -orr[2];
+    orr[2] = t;
+    t = kSqrtHalf * (oi[3] - orr[3]);
+    oi[3] = -kSqrtHalf * (oi[3] + orr[3]);
+    orr[3] = t;
+    const float er[4] = {re[0], re[2], re[4], re[6]};
+    const float ei[4] = {im[0], im[2], im[4], im[6]};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      re[k] = er[k] + orr[k];
+      im[k] = ei[k] + oi[k];
+      re[k + 4] = er[k] - orr[k];
+      im[k + 4] = ei[k] - oi[k];
+    }
+  }
+}
+
+// One radix-R decimation-in-frequency pass in place over the n samples of
+// xr/xi (at sw()), on sub-transforms of length L (L / R a power of two, L >= R):
+// butterfly j of a block at base reads x[base + m*s] (s = L/R), takes its
+// R-point DFT, multiplies output k by W_L^{jk} = W_N^{jk n/L} (tw holds
+// W_N^m, m < n) and writes it to x[base + k*s]. Each butterfly reads and
+// writes its own R places, so the pass needs no barrier inside.
+template <int R>
+__device__ __forceinline__ void dif_pass(float* __restrict__ xr,
+                                         float* __restrict__ xi, int n, int L,
+                                         const float2* __restrict__ tw) {
+  const int s = L / R;
+  const int step = n / L;
+  for (int b = threadIdx.x; b < n / R; b += kThreads) {
+    const int j = b & (s - 1);
+    const int base = (b - j) * R + j;
+    // sw() leaves bits 8 and up alone: a stride of 256 or more is added
+    // after it
+    int at[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      at[m] = s >= 256 ? sw(base) + m * s : sw(base + m * s);
+    }
+    float re[R];
+    float im[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      re[m] = xr[at[m]];
+      im[m] = xi[at[m]];
+    }
+    dft<R>(re, im);
+#pragma unroll
+    for (int k = 1; k < R; ++k) {
+      const float2 w = __ldg(tw + j * k * step);
+      const float t = re[k] * w.x - im[k] * w.y;
+      im[k] = re[k] * w.y + im[k] * w.x;
+      re[k] = t;
+    }
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      xr[at[m]] = re[m];
+      xi[at[m]] = im[m];
+    }
+  }
+}
+
+// The last pass (L == R): R-point DFTs of consecutive groups, keeping only
+// the largest |X|^2 this thread sees. sw() keeps each aligned group of 4
+// together, so R >= 4 loads 16 bytes at a time.
+template <int R>
+__device__ __forceinline__ float last_pass_max(const float* __restrict__ xr,
+                                               const float* __restrict__ xi,
+                                               int n) {
+  float mx = 0.f;
+  for (int b = threadIdx.x; b < n / R; b += kThreads) {
+    float re[R];
+    float im[R];
+    if constexpr (R >= 4) {
+#pragma unroll
+      for (int h = 0; h < R; h += 4) {
+        const int at = sw(b * R + h);
+        const float4 vr = *reinterpret_cast<const float4*>(xr + at);
+        const float4 vi = *reinterpret_cast<const float4*>(xi + at);
+        re[h] = vr.x;
+        re[h + 1] = vr.y;
+        re[h + 2] = vr.z;
+        re[h + 3] = vr.w;
+        im[h] = vi.x;
+        im[h + 1] = vi.y;
+        im[h + 2] = vi.z;
+        im[h + 3] = vi.w;
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        re[m] = xr[sw(b * R + m)];
+        im[m] = xi[sw(b * R + m)];
+      }
+    }
+    dft<R>(re, im);
+#pragma unroll
+    for (int k = 0; k < R; ++k) mx = fmaxf(mx, re[k] * re[k] + im[k] * im[k]);
+  }
+  return mx;
+}
+
+__host__ __device__ __forceinline__ bool is_pow2(int v) {
+  return v > 0 && (v & (v - 1)) == 0;
 }
 
 // Stage 1 of the DFT in place on one frame: x[k1*N2 + c] becomes
@@ -360,8 +692,8 @@ __device__ void dft_stage1(float* __restrict__ xi, float* __restrict__ xq,
       for (int m = 0; m < n1; ++m) {
         const float wr = __ldg(w1r + k1 * n1 + m);
         const float wi = __ldg(w1i + k1 * n1 + m);
-        const float xr = xi[m * n2 + col];
-        const float xm = xq[m * n2 + col];
+        const float xr = xi[sw(m * n2 + col)];
+        const float xm = xq[sw(m * n2 + col)];
         ar += wr * xr - wi * xm;
         ai += wr * xm + wi * xr;
       }
@@ -374,71 +706,65 @@ __device__ void dft_stage1(float* __restrict__ xi, float* __restrict__ xq,
     for (int idx = threadIdx.x; idx < total; idx += kThreads) {
       const int k1 = idx / cw;
       const int col = c0 + (idx - k1 * cw);
-      xi[k1 * n2 + col] = sr[idx];
-      xq[k1 * n2 + col] = si[idx];
+      xi[sw(k1 * n2 + col)] = sr[idx];
+      xq[sw(k1 * n2 + col)] = si[idx];
     }
     __syncthreads();
   }
 }
 
-// K1: a block owns `tile` consecutive frames of the separate (B, N) I and
-// Q planes.
-__global__ void __launch_bounds__(kThreads, 2)
-    fused_kernel(const float* __restrict__ gi, const float* __restrict__ gq,
-                 const float* __restrict__ w1r, const float* __restrict__ w1i,
-                 const float* __restrict__ twr, const float* __restrict__ twi,
-                 const float* __restrict__ w2r, const float* __restrict__ w2i,
-                 float* __restrict__ out, int b, int n, int n1, int n2,
-                 int tile, int normalize) {
-  extern __shared__ float smem[];
-  float* xs = smem;  // [tile][2][n]: I plane then Q plane of each frame
-  float* ph = xs + static_cast<size_t>(tile) * 2 * n;
-  float* wsr = ph + n;
-  float* wsi = wsr + kKB * kTileCols;
-  float* red = wsi + kKB * kTileCols;
-  unsigned* gmax = reinterpret_cast<unsigned*>(red + kWarps * kRedValues);
+// max |X|^2 of the frame in xr/xi by the in-place FFT (N2 a power of two);
+// this thread's share of the maximum. Overwrites the frame and, where N1
+// is not a power of two, the scratch.
+__device__ float gmax_fft(float* __restrict__ xr, float* __restrict__ xi,
+                          float* __restrict__ scratch,
+                          const float2* __restrict__ tw,
+                          const float* __restrict__ w1r,
+                          const float* __restrict__ w1i,
+                          const float* __restrict__ twr,
+                          const float* __restrict__ twi, int n, int n1,
+                          int n2) {
+  int L = n;
+  if (!is_pow2(n1)) {
+    dft_stage1(xr, xi, scratch, w1r, w1i, twr, twi, n1, n2);
+    L = n2;
+  }
+  for (; L > 8; L /= 8) {
+    dif_pass<8>(xr, xi, n, L, tw);
+    __syncthreads();
+  }
+  if (L == 8) return last_pass_max<8>(xr, xi, n);
+  if (L == 4) return last_pass_max<4>(xr, xi, n);
+  return last_pass_max<2>(xr, xi, n);
+}
 
+// max |X|^2 of the frame by stage 1 and the direct stage-2 product
+// X[k1][k2] = sum_m D[k1][m] W_N2[m][k2] (N2 not a power of two); this
+// thread's share of the maximum. ws holds 2 * kKB * kTileCols floats.
+__device__ float gmax_direct(float* __restrict__ xr, float* __restrict__ xi,
+                             float* __restrict__ scratch,
+                             float* __restrict__ ws,
+                             const float* __restrict__ w1r,
+                             const float* __restrict__ w1i,
+                             const float* __restrict__ twr,
+                             const float* __restrict__ twi,
+                             const float* __restrict__ w2r,
+                             const float* __restrict__ w2i, int n1, int n2) {
+  dft_stage1(xr, xi, scratch, w1r, w1i, twr, twi, n1, n2);
+  float* wsr = ws;
+  float* wsi = ws + kKB * kTileCols;
   const int tid = threadIdx.x;
-  const int f0 = blockIdx.x * tile;
-  const int nf = min(tile, b - f0);
-
-  for (int f = 0; f < nf; ++f) {
-    const float* si = gi + static_cast<size_t>(f0 + f) * n;
-    const float* sq = gq + static_cast<size_t>(f0 + f) * n;
-    float* di = xs + static_cast<size_t>(f) * 2 * n;
-    float* dq = di + n;
-    for (int k = tid; k < n; k += kThreads) {
-      di[k] = si[k];
-      dq[k] = sq[k];
-    }
-  }
-  if (tid < kMaxTileFrames) gmax[tid] = 0u;
-  __syncthreads();
-
-  for (int f = 0; f < nf; ++f) {
-    float* xi = xs + static_cast<size_t>(f) * 2 * n;
-    float* xq = xi + n;
-    frame_stats(xi, xq, ph, red, n, normalize != 0,
-                out + static_cast<size_t>(f0 + f) * kNumFeatures);
-    dft_stage1(xi, xq, ph, w1r, w1i, twr, twi, n1, n2);
-  }
-
-  // Stage 2: X[r][k2] = sum_m D[r][m] W_N2[m][k2] for the nf*N1 rows
-  // r = f*N1 + k1 of the tile; only max_k2 |X|^2 per frame is kept.
-  const int rows = nf * n1;
   const int ty = tid / kTC;
   const int tx = tid % kTC;
-  for (int r0 = 0; r0 < rows; r0 += kTileRows) {
+  float mx = 0.f;
+  for (int r0 = 0; r0 < n1; r0 += kTileRows) {
     int rbase[kRM];
-    int rframe[kRM];
     bool rvalid[kRM];
 #pragma unroll
     for (int i = 0; i < kRM; ++i) {
       const int r = r0 + ty + kTR * i;
-      rvalid[i] = r < rows;
-      const int rr = rvalid[i] ? r : 0;
-      rframe[i] = rr / n1;
-      rbase[i] = rframe[i] * 2 * n + (rr - rframe[i] * n1) * n2;
+      rvalid[i] = r < n1;
+      rbase[i] = (rvalid[i] ? r : 0) * n2;
     }
     for (int c0 = 0; c0 < n2; c0 += kTileCols) {
       float accr[kRM][kRN];
@@ -472,8 +798,8 @@ __global__ void __launch_bounds__(kThreads, 2)
           float wi[kRN];
 #pragma unroll
           for (int i = 0; i < kRM; ++i) {
-            dr[i] = xs[rbase[i] + k0 + kk];
-            di[i] = xs[rbase[i] + n + k0 + kk];
+            dr[i] = xr[sw(rbase[i] + k0 + kk)];
+            di[i] = xi[sw(rbase[i] + k0 + kk)];
           }
 #pragma unroll
           for (int j = 0; j < kRN; ++j) {
@@ -490,69 +816,136 @@ __global__ void __launch_bounds__(kThreads, 2)
           }
         }
       }
+      // padded columns (c >= N2) hold zero table entries, so they add 0
 #pragma unroll
       for (int i = 0; i < kRM; ++i) {
         if (!rvalid[i]) continue;
-        float m = 0.f;
 #pragma unroll
         for (int j = 0; j < kRN; ++j) {
-          m = fmaxf(m, accr[i][j] * accr[i][j] + acci[i][j] * acci[i][j]);
+          mx = fmaxf(mx, accr[i][j] * accr[i][j] + acci[i][j] * acci[i][j]);
         }
-        // non-negative floats order like their bit patterns
-        atomicMax(gmax + rframe[i], __float_as_uint(m));
       }
     }
   }
+  return mx;
+}
+
+// K1: one block per frame of the separate (B, N) I and Q planes. kFft:
+// gamma_max by the FFT (N2 a power of two), else by the direct stage 2.
+template <int kPer, bool kFft>
+__global__ void __launch_bounds__(kThreads, kFft ? kMinBlocks : 2)
+    fused_kernel(const float* __restrict__ gi, const float* __restrict__ gq,
+                 const float2* __restrict__ tw, const float* __restrict__ w1r,
+                 const float* __restrict__ w1i, const float* __restrict__ twr,
+                 const float* __restrict__ twi, const float* __restrict__ w2r,
+                 const float* __restrict__ w2i, float* __restrict__ out, int n,
+                 int n1, int n2, int normalize) {
+  extern __shared__ float smem[];
+  const int np = plane_floats(n);
+  float* xi = smem;
+  float* xq = smem + np;
+  float* ph = smem + 2 * np;
+  float* red = ph + n;
+  const size_t f = blockIdx.x;
+  float* row = out + f * kNumFeatures;
+  frame_stats<kPer>(gi + f * n, gq + f * n, xi, xq, ph, red, n,
+                    normalize != 0, row);
+  // the statistics' last barrier has passed every read of xi, xq and ph:
+  // gamma_max overwrites the frame in place and takes ph as scratch
+  float mx;
+  if constexpr (kFft) {
+    mx = gmax_fft(xi, xq, ph, tw, w1r, w1i, twr, twi, n, n1, n2);
+  } else {
+    mx = gmax_direct(xi, xq, ph, red + kRedFloats, w1r, w1i, twr, twi, w2r,
+                     w2i, n1, n2);
+  }
+  // the last reduction (pass 3) used the first buffer and barriers have
+  // passed since, so the second takes the maximum
+  float m[1] = {mx};
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    m[0] = fmaxf(m[0], __shfl_xor_sync(0xffffffffu, m[0], off));
+  }
+  float* red1 = red + kWarps * kRedValues;
+  if ((threadIdx.x & 31) == 0) red1[threadIdx.x >> 5] = m[0];
   __syncthreads();
-  if (tid < nf) {
-    out[static_cast<size_t>(f0 + tid) * kNumFeatures] =
-        __uint_as_float(gmax[tid]) / static_cast<float>(n);
+  if (threadIdx.x == 0) {
+    float g = red1[0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) g = fmaxf(g, red1[w]);
+    row[0] = g / static_cast<float>(n);
   }
 }
 
-size_t fused_smem_bytes(int n, int tile) {
-  return (static_cast<size_t>(tile) * 2 * n + n + 2 * kKB * kTileCols +
-          kWarps * kRedValues + kMaxTileFrames) *
+size_t fused_smem_bytes(int n, bool fft) {
+  return (static_cast<size_t>(2) * plane_floats(n) + n + kRedFloats +
+          (fft ? 0 : 2 * kKB * kTileCols)) *
          sizeof(float);
 }
 
 size_t stats_smem_bytes(int n) {
-  return (static_cast<size_t>(3) * n + kWarps * kRedValues) * sizeof(float);
+  return (static_cast<size_t>(2) * plane_floats(n) + n + kRedFloats) *
+         sizeof(float);
+}
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Frames per K1 block for frame size n (0: one frame does not fit).
-int amc_fused_tile_frames(int n) {
-  for (int tile = kMaxTileFrames; tile >= 1; --tile) {
-    if (fused_smem_bytes(n, tile) <= kSmemLimit) return tile;
-  }
-  return 0;
+// gamma_max path of K1 for the factorization N1 x N2: 1 for the in-block
+// FFT (N2 a power of two), 0 for the direct stage-2 product.
+int amc_fused_gmax_path(int n2) { return is_pow2(n2) ? 1 : 0; }
+
+// 1 if K1 can hold a frame of N = n1 * n2 samples in shared memory.
+int amc_fused_fits(int n1, int n2) {
+  return fused_smem_bytes(n1 * n2, amc_fused_gmax_path(n2) != 0) <=
+         kSmemLimit;
 }
 
 // 1 if K2 can hold a frame of size n in shared memory.
 int amc_stats_fits(int n) { return stats_smem_bytes(n) <= kSmemLimit; }
 
-int amc_fused_features(const float* i, const float* q, const float* w1r,
-                       const float* w1i, const float* twr, const float* twi,
-                       const float* w2r, const float* w2i, float* out, int b,
-                       int n, int n1, int n2, int normalize, void* stream) {
-  const int tile = amc_fused_tile_frames(n);
-  if (tile == 0 || n1 * n2 != n || n1 < 1 || n2 < 2) {
+// K1. tw is the (N, 2) table of W_N^m for the FFT path (else unused); w1r,
+// w1i, twr, twi the W_N1 and N1 x N2 twiddle tables, read where N1 is not a
+// power of two or N2 is not; w2r, w2i the N2 x N2 table, read by the direct
+// path only. A table that the path does not read may be null.
+int amc_fused_features(const float* i, const float* q, const float* tw,
+                       const float* w1r, const float* w1i, const float* twr,
+                       const float* twi, const float* w2r, const float* w2i,
+                       float* out, int b, int n, int n1, int n2, int normalize,
+                       void* stream) {
+  if (n1 < 1 || n2 < 8 || n1 * n2 != n || !amc_fused_fits(n1, n2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (b <= 0) return 0;
-  const size_t smem = fused_smem_bytes(n, tile);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (b + tile - 1) / tile;
-  fused_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      i, q, w1r, w1i, twr, twi, w2r, w2i, out, b, n, n1, n2, tile,
-      normalize);
+  const bool fft = amc_fused_gmax_path(n2) != 0;
+  const bool cached = n <= kThreads * kCached;
+  const size_t smem = fused_smem_bytes(n, fft);
+  const auto* tw2 = reinterpret_cast<const float2*>(tw);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+#define AMC_LAUNCH_K1(PER, FFT)                                             \
+  err = set_smem(fused_kernel<PER, FFT>, smem);                             \
+  if (err != cudaSuccess) return static_cast<int>(err);                     \
+  fused_kernel<PER, FFT><<<b, kThreads, smem, st>>>(                        \
+      i, q, tw2, w1r, w1i, twr, twi, w2r, w2i, out, n, n1, n2, normalize)
+  if (fft && cached) {
+    AMC_LAUNCH_K1(kCached, true);
+  } else if (fft) {
+    AMC_LAUNCH_K1(0, true);
+  } else if (cached) {
+    AMC_LAUNCH_K1(kCached, false);
+  } else {
+    AMC_LAUNCH_K1(0, false);
+  }
+#undef AMC_LAUNCH_K1
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -563,12 +956,17 @@ int amc_stats_features(const float* iq, float* out, int b, int n,
   }
   if (b <= 0) return 0;
   const size_t smem = stats_smem_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(
-      stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stats_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      iq, out, n, normalize);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (n <= kThreads * kCached) {
+    err = set_smem(stats_kernel<kCached>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    stats_kernel<kCached><<<b, kThreads, smem, st>>>(iq, out, n, normalize);
+  } else {
+    err = set_smem(stats_kernel<0>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    stats_kernel<0><<<b, kThreads, smem, st>>>(iq, out, n, normalize);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -40,9 +40,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES: dict[str, dict[str, tuple[list, object]]] = {
     "features": {
-        "amc_fused_features": ([_P] * 9 + [_I] * 5 + [_P], _I),
+        "amc_fused_features": ([_P] * 10 + [_I] * 5 + [_P], _I),
         "amc_stats_features": ([_P, _P, _I, _I, _I, _P], _I),
-        "amc_fused_tile_frames": ([_I], _I),
+        "amc_fused_gmax_path": ([_I], _I),
+        "amc_fused_fits": ([_I, _I], _I),
         "amc_stats_fits": ([_I], _I),
         "amc_error_string": ([_I], ctypes.c_char_p),
     },

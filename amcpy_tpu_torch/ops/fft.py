@@ -7,8 +7,12 @@ output permutation works and no reordering is ever done.
 ``gmax_fft``     — ``torch.fft.fft``.
 ``gmax_matmul``  — Cooley-Tukey four-step factorization N = N1 x N2 as two
 batched DFT products plus a twiddle. It is the plain version of the fused
-CUDA kernel's gamma_max (``csrc/features.cu``), which runs the same two
-stages on the same host-built tables.
+CUDA kernel's gamma_max (``csrc/features.cu``).
+
+The kernel's own plan: where N2 is a power of two it runs an in-place
+decimation-in-frequency FFT (:func:`fft_plan`, twiddles from
+:func:`fft_twiddles`); else the two stages of ``gmax_matmul`` on the same
+host-built tables (:func:`device_tables`).
 """
 
 from __future__ import annotations
@@ -18,7 +22,15 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-__all__ = ["gmax_fft", "gmax_matmul", "best_factorization", "device_tables"]
+__all__ = [
+    "gmax_fft",
+    "gmax_matmul",
+    "best_factorization",
+    "device_tables",
+    "device_fft_twiddles",
+    "fft_plan",
+    "fft_twiddles",
+]
 
 
 def gmax_fft(i: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -83,6 +95,49 @@ def device_tables(
         torch.from_numpy(t).to(device=device, dtype=dtype).contiguous()
         for t in _dft_tables(n1, n2)
     )
+
+
+def _is_pow2(v: int) -> bool:
+    return v > 0 and v & (v - 1) == 0
+
+
+def fft_plan(n1: int, n2: int) -> tuple[bool, tuple[int, ...]] | None:
+    """The fused kernel's FFT plan for N = n1 x n2, or None where N2 is not
+    a power of two (the kernel then takes the direct stage 2).
+
+    Returns ``(direct_stage1, radices)``. Where N1 is a power of two too,
+    the radix passes run over the whole frame, sub-transform length L = N
+    first; else the direct N1-point stage (W_N1 and twiddle tables of
+    :func:`device_tables`) comes first and the passes start at L = N2. Each
+    pass takes radix ``min(8, L)`` and divides L by it, as the kernel does
+    (``gmax_fft`` in ``csrc/features.cu``).
+    """
+    if not _is_pow2(n2):
+        return None
+    direct = not _is_pow2(n1)
+    length = n2 if direct else n1 * n2
+    radices = []
+    while length > 1:
+        radices.append(min(8, length))
+        length //= radices[-1]
+    return direct, tuple(radices)
+
+
+@lru_cache(maxsize=16)
+def fft_twiddles(n: int) -> np.ndarray:
+    """``(n, 2)`` float32 table of W_N^m = exp(-2 pi i m / n), m < n, as
+    (re, im) pairs, built in float64 and rounded once. A pass over
+    sub-transforms of length L multiplies output k of butterfly j by
+    W_L^{jk} = W_N^{jk n/L}, entry ``j*k*(n/L)``."""
+    w = np.exp(-2j * np.pi * np.arange(n) / n)
+    return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+
+
+@lru_cache(maxsize=16)
+def device_fft_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """:func:`fft_twiddles` on ``device``, cached (the kernel reads it on
+    every launch of the FFT path)."""
+    return torch.from_numpy(fft_twiddles(n)).to(device).contiguous()
 
 
 def _gmax_matmul_impl(

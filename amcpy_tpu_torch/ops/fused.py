@@ -2,10 +2,13 @@
 
 Replaces the Pallas kernel ``amcpy_tpu/ops/fused.py::_fused_kernel_entry``
 (wrapper ``extract_features_fused``). The kernel, ``amc_fused_features`` in
-``csrc/features.cu``, reads each frame's separate I and Q planes once,
-computes the 17 statistics and gamma_max = max|DFT|^2 / N by the two-stage
-N1 x N2 DFT of :mod:`amcpy_tpu_torch.ops.fft`, with the DFT tables built on
-the host and cached on the device.
+``csrc/features.cu``, gives one thread block to each frame, reads its
+separate I and Q planes once, computes the 17 statistics and gamma_max =
+max|DFT|^2 / N. Where N2 of :func:`best_factorization` is a power of two
+(every power-of-two N) gamma_max is an FFT in the block (its plan is
+:func:`amcpy_tpu_torch.ops.fft.fft_plan`); else the direct two-stage
+N1 x N2 DFT. :func:`gmax_path` says which. The tables are built on the host
+and cached on the device.
 
 A CUDA tensor launches the kernel or raises. A CPU tensor takes the plain
 PyTorch version (:func:`amcpy_tpu_torch.ops.features._extract_planar` with
@@ -19,9 +22,18 @@ import numpy as np
 import torch
 
 from amcpy_tpu_torch.ops.features import NUM_FEATURES, _extract_planar
-from amcpy_tpu_torch.ops.fft import best_factorization, device_tables
+from amcpy_tpu_torch.ops.fft import (
+    best_factorization,
+    device_fft_twiddles,
+    device_tables,
+)
 
-__all__ = ["extract_features_fused", "extract_features_fused_any", "split_planes"]
+__all__ = [
+    "extract_features_fused",
+    "extract_features_fused_any",
+    "gmax_path",
+    "split_planes",
+]
 
 
 def split_planes(frames: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -77,17 +89,23 @@ def extract_features_fused(
     from amcpy_tpu_torch.ops import _build
 
     lib = _build.load("features")
-    if lib.amc_fused_tile_frames(n) == 0:
+    if not lib.amc_fused_fits(n1, n2):
         raise ValueError(
             f"frame size {n} does not fit the fused kernel's shared memory"
         )
     out = torch.empty((b, NUM_FEATURES), dtype=torch.float32, device=i.device)
     if b == 0:
         return out
-    tables = device_tables(n1, n2, i.device)
+    # W_N^m for the FFT path, the N2 x N2 table for the direct one, null
+    # where the path does not read it; W_N1 and the twiddle always
+    fft = lib.amc_fused_gmax_path(n2)
+    w1r, w1i, twr, twi, w2r, w2i = device_tables(n1, n2, i.device)
+    tw = device_fft_twiddles(n, i.device).data_ptr() if fft else 0
+    w2 = (0, 0) if fft else (w2r.data_ptr(), w2i.data_ptr())
     with torch.cuda.device(i.device):
         err = lib.amc_fused_features(
-            i.data_ptr(), q.data_ptr(), *(t.data_ptr() for t in tables),
+            i.data_ptr(), q.data_ptr(), tw,
+            *(t.data_ptr() for t in (w1r, w1i, twr, twi)), *w2,
             out.data_ptr(), b, n, n1, n2, int(normalize_scale),
             torch.cuda.current_stream(i.device).cuda_stream,
         )
@@ -97,6 +115,19 @@ def extract_features_fused(
 
 
 extract_features_fused.launches = 0
+
+
+def gmax_path(n: int) -> str:
+    """How the kernel computes gamma_max for frames of ``n`` samples, as
+    its library reports it: ``"fft"`` (the in-block FFT) or ``"direct"``
+    (the N2 x N2 table product). Builds the library at first use; raises
+    ``ValueError`` when ``n`` has no N1 x N2 factorization."""
+    fac = best_factorization(n)
+    if fac is None:
+        raise ValueError(f"frame size {n} has no N1 x N2 factorization")
+    from amcpy_tpu_torch.ops import _build
+
+    return "fft" if _build.load("features").amc_fused_gmax_path(fac[1]) else "direct"
 
 
 def extract_features_fused_any(

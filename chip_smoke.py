@@ -12,9 +12,13 @@ Phases, each printing one JSON line:
 3. kernels — each CUDA kernel against its plain PyTorch version on the
    card: K1 and K2 on numpy-seeded Gaussian frames with a per-frame scale
    spread of exp(U(-6, 6)) and a few frames holding -0.0 samples, within
-   2e-4 * term_scales + 2e-5 * |want| per feature; K3 (the CNN trunk) on
-   the same kind of frames and a numpy-seeded folded default stack
-   (32, 64, 128), within 2e-2 + 2e-2 * |want| on the pooled features; times
+   2e-4 * term_scales + 2e-5 * |want| per feature, K1 at frame sizes that
+   take each of its gamma_max paths (the in-block FFT where N2 is a power
+   of two: 256 ... 16384 and 12288 = 24 x 512; the direct stage 2 at
+   1000 = 8 x 125 and 88 = 8 x 11), each check printing its path and
+   gamma_max's own share of the tolerance; K3 (the CNN trunk) on the same
+   kind of frames and a numpy-seeded folded default stack (32, 64, 128),
+   within 2e-2 + 2e-2 * |want| on the pooled features; times
    of the kernel, of the plain version, of one PyTorch library call where
    one computes the same function, and for K3 of the module forward;
 4. extraction — the main path: a numpy-made ``all_modulations.mat`` at the
@@ -57,9 +61,8 @@ failure raises and the process exits non-zero; without a CUDA device it
 exits 1 and prints no result.
 
 ``bound_ms`` counts what each kernel's function needs, whatever the
-design (``k1_work``, ``k2_work``, ``k3_work``); ``design_ops_ms`` is the
-least time of K1's own matrix-product DFT at the FP32 rate, which is not a
-bound.
+design (``k1_work``, ``k2_work``, ``k3_work``); K1's counts gamma_max as
+the FFT that its main path (N = 2048) runs.
 """
 
 from __future__ import annotations
@@ -131,11 +134,13 @@ def term_scales(x: np.ndarray) -> np.ndarray:
     return s
 
 
-def compare(got, want, frames) -> tuple[float, float]:
-    """(max |got - want|, max |got - want| / tol) over all features."""
-    got = got.detach().cpu().double().numpy()
-    want = want.detach().cpu().double().numpy()
-    tol = TOL_SCALE * term_scales(frames) + TOL_REL * np.abs(want)
+def compare(got, want, frames, cols=slice(None)) -> tuple[float, float]:
+    """(max |got - want|, max |got - want| / tol) over the features
+    ``cols`` (all of them by default)."""
+    got = got.detach().cpu().double().numpy()[:, cols]
+    want = want.detach().cpu().double().numpy()[:, cols]
+    tol = (TOL_SCALE * term_scales(frames)[:, cols]
+           + TOL_REL * np.abs(want))
     err = np.abs(got - want)
     if not np.isfinite(got).all():
         raise AssertionError("kernel output is not finite")
@@ -186,28 +191,14 @@ def cuda_ms(fn, inputs: list[tuple], reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def dft_table_bytes(n1: int, n2: int) -> int:
-    """Bytes of the fused kernel's DFT tables (W_N1, twiddle, W_N2)."""
-    return 4 * 2 * (n1 * n1 + n1 * n2 + n2 * n2)
-
-
-def k1_work(b: int, n: int, n1: int, n2: int) -> tuple[float, float]:
+def k1_work(b: int, n: int) -> tuple[float, float]:
     """(bytes, operations) the fused kernel's function needs on a (b, n)
-    batch, whatever the design: I and Q read once, 18 floats written per
-    frame, the DFT tables read once; the statistics, and gamma_max as an
-    FFT (5 N log2 N) followed by |X|^2 and its maximum (4 N)."""
-    nbytes = 8.0 * b * n + 72.0 * b + dft_table_bytes(n1, n2)
+    batch: I and Q read once, 18 floats written per frame, one table of N
+    complex twiddles read once; the statistics, and gamma_max as an FFT
+    (5 N log2 N) followed by |X|^2 and its maximum (4 N)."""
+    nbytes = 8.0 * b * n + 72.0 * b + 8.0 * n
     ops = b * (STATS_OPS_PER_SAMPLE * n + 5.0 * n * np.log2(n) + 4.0 * n)
     return nbytes, ops
-
-
-def k1_design_ms(b: int, n: int, n1: int, n2: int) -> float:
-    """Least time of this kernel's own DFT at the FP32 rate: stage 1
-    (8 N1^2 N2), the twiddle (6 N) and the stage-2 matrix product
-    (8 N1 N2^2) per frame. Not a bound of the function: an FFT needs far
-    fewer operations."""
-    ops = b * (8.0 * n1 * n1 * n2 + 6.0 * n + 8.0 * n1 * n2 * n2)
-    return ops / FP32_FLOP_PER_S * 1e3
 
 
 def k2_work(b: int, n: int) -> tuple[float, float]:
@@ -288,8 +279,7 @@ def random_cnn(torch, seed: int):
 
 def phase_kernels(torch, dev) -> dict[str, dict]:
     from amcpy_tpu_torch.ops import features as F
-    from amcpy_tpu_torch.ops.fft import best_factorization
-    from amcpy_tpu_torch.ops.fused import extract_features_fused
+    from amcpy_tpu_torch.ops.fused import extract_features_fused, gmax_path
     from amcpy_tpu_torch.ops.pallas_features import extract_features_pallas
 
     rows: dict[str, dict] = {}
@@ -302,19 +292,22 @@ def phase_kernels(torch, dev) -> dict[str, dict]:
 
     k1 = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
     before = extract_features_fused.launches
-    for seed, (b, n) in enumerate([(4096, 2048), (1000, 2048), (37, 1024), (64, 256)]):
+    k1_shapes = [(4096, 2048), (1000, 2048), (37, 1024), (64, 256), (2, 16384),
+                 (3, 12288), (50, 1000), (7, 88)]
+    for seed, (b, n) in enumerate(k1_shapes):
         x = test_frames(b, n, seed)
         i = torch.from_numpy(np.ascontiguousarray(x.real)).to(dev)
         q = torch.from_numpy(np.ascontiguousarray(x.imag)).to(dev)
         got = extract_features_fused(i, q)
         torch.cuda.synchronize()
-        err, ratio = compare(got, plain_k1(i, q), x)
-        checks.append({"kernel": "K1", "shape": [b, n], "max_abs_err": err,
-                       "max_err_over_tol": ratio})
+        want = plain_k1(i, q)
+        err, ratio = compare(got, want, x)
+        checks.append({"kernel": "K1", "shape": [b, n], "gmax_path": gmax_path(n),
+                       "max_abs_err": err, "max_err_over_tol": ratio,
+                       "gmax_err_over_tol": compare(got, want, x, cols=[0])[1]})
         k1["max_abs_err"] = max(k1["max_abs_err"], err)
         k1["max_err_over_tol"] = max(k1["max_err_over_tol"], ratio)
         if (b, n) == (4096, 2048):
-            n1, n2 = best_factorization(n)
             planes = rotated(i, q)
             k1["ms"] = cuda_ms(extract_features_fused, planes, 20)
             # the same input again and again: as much of it in L2 as fits
@@ -324,16 +317,16 @@ def phase_kernels(torch, dev) -> dict[str, dict]:
                 lambda c: torch.fft.fft(c).abs().amax(dim=-1),
                 rotated(torch.complex(i, q)), 20,
             )
-            k1["bound_ms"], k1["bound_by"] = bound(*k1_work(b, n, n1, n2))
-            k1["design_ops_ms"] = k1_design_ms(b, n, n1, n2)
+            k1["bound_ms"], k1["bound_by"] = bound(*k1_work(b, n))
             k1["shape"] = [b, n]
+            k1["gmax_path"] = gmax_path(n)
     if extract_features_fused.launches <= before:
         raise AssertionError("the fused kernel's launch counter did not rise")
     rows["fused"] = k1
 
     k2 = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
     before = extract_features_pallas.launches
-    for seed, (b, n) in enumerate([(4096, 2048), (37, 1024)], start=10):
+    for seed, (b, n) in enumerate([(4096, 2048), (37, 1024), (2, 16384)], start=10):
         x = test_frames(b, n, seed)
         iq = torch.from_numpy(F.to_planar(x)).to(dev)
         got = extract_features_pallas(iq, gmax_mode="matmul")
@@ -812,8 +805,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
-            # least time of K1's own matrix-product DFT (not a bound)
-            "design_ops_ms": r.get("design_ops_ms"),
+            # K1: how gamma_max was computed at the timed shape
+            "gmax_path": r.get("gmax_path"),
             # K3: the module forward's time on the same frames, and the
             # three times its bound is the largest of
             "module_forward_ms": r.get("module_forward_ms"),

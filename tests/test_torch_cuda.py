@@ -63,9 +63,14 @@ def _planes(x, dev):
 
 
 @pytest.mark.parametrize(
-    "b,n", [(37, 1024), (64, 256), (130, 2048), (1, 512), (50, 1000)]
+    "b,n",
+    [(37, 1024), (64, 256), (130, 2048), (1, 512), (50, 1000), (4096, 2048),
+     (3, 4096), (2, 8192), (1, 16384), (3, 12288), (7, 88)],
 )
 def test_kernels_match_plain_on_card(cuda, b, n):
+    """K1's FFT path (N2 a power of two; 12288 = 24 x 512 with the direct
+    N1 stage first) and its direct path (1000 = 8 x 125, 88 = 8 x 11); K2
+    with the samples in registers (N <= 2048) and recomputed per pass."""
     x = _frames(b, n, seed=n)
     i, q = _planes(x, cuda)
     k1, k2 = extract_features_fused.launches, extract_features_pallas.launches
@@ -93,6 +98,101 @@ def test_kernels_match_oracle_on_card(cuda, normalize):
     iq = torch.from_numpy(F.to_planar(x)).to(cuda)
     got2 = extract_features_pallas(iq, normalize_scale=normalize).cpu().numpy()
     _assert_within(got2, want, x, 1e-4, 1e-5)
+
+
+def _exact_pi_frame():
+    """Alternating real +-1 (phase steps of exactly +-pi) with a little
+    structure (``test_torch_features.py::test_exact_pi_wrapped_differences``)."""
+    n = 256
+    re = np.where(np.arange(n) % 2 == 0, 1.0, -1.0).astype(np.float32)
+    re[::7] *= 2.0
+    im = np.zeros(n, np.float32)
+    im[5::11] = 0.5
+    return (re + 1j * im).astype(np.complex64)[None, :]
+
+
+def _negative_zero_frames():
+    """Every third sample at I < 0, Q = -0.0
+    (``test_torch_features.py::test_negative_zero_follows_oracle``)."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal((4, 512)) + 1j * rng.standard_normal((4, 512))).astype(
+        np.complex64
+    )
+    x.real[:, ::3] = -np.abs(x.real[:, ::3])
+    x.imag[:, ::3] = -0.0
+    assert np.signbit(x.imag[:, ::3]).all()
+    return x
+
+
+def _axes_frames():
+    """Gaussian frames with every fourth sample moved onto an axis, signed
+    zeros included: (+-r, +-0), (+-0, +-r) and (+-0, +-0)."""
+    rng = np.random.default_rng(13)
+    x = (rng.standard_normal((6, 1024)) + 1j * rng.standard_normal((6, 1024))).astype(
+        np.complex64
+    )
+    r = np.abs(x.real[:, ::4])
+    sign = np.where(rng.random(r.shape) < 0.5, -1.0, 1.0).astype(np.float32)
+    zero = np.where(rng.random(r.shape) < 0.5, -0.0, 0.0).astype(np.float32)
+    on_real = rng.random(r.shape) < 0.5
+    x.real[:, ::4] = np.where(on_real, sign * r, zero)
+    x.imag[:, ::4] = np.where(on_real, zero[:, ::-1], sign * r)
+    x.real[:, 2::64] = zero[:, : x[:, 2::64].shape[1]]
+    x.imag[:, 2::64] = -zero[:, : x[:, 2::64].shape[1]]
+    return x
+
+
+EDGE_FRAMES = {"exact_pi": _exact_pi_frame, "negative_zero": _negative_zero_frames,
+               "axes": _axes_frames}
+
+
+@pytest.mark.parametrize("frames", sorted(EDGE_FRAMES))
+def test_fused_edge_phases_follow_oracle_on_card(cuda, frames):
+    """The one-step wrap keeps the floor-mod and the +-pi edge rule, and
+    the kernels' phase numpy's signed zero and axes: K1 and K2 against the
+    float64 oracle."""
+    x = EDGE_FRAMES[frames]()
+    want = features_batch(x)
+    got = extract_features_fused(*_planes(x, cuda)).cpu().numpy()
+    _assert_within(got, want, x, 1e-4, 1e-5)
+    iq = torch.from_numpy(F.to_planar(x)).to(cuda)
+    got2 = extract_features_pallas(iq).cpu().numpy()
+    _assert_within(got2, want, x, 1e-4, 1e-5)
+
+
+def test_gmax_path_follows_n2(cuda):
+    """The library's own choice: the in-block FFT wherever N2 is a power of
+    two, the direct stage 2 elsewhere; the host plan agrees."""
+    from amcpy_tpu_torch.ops.fft import best_factorization, fft_plan
+    from amcpy_tpu_torch.ops.fused import gmax_path
+
+    assert gmax_path(2048) == "fft" and gmax_path(16384) == "fft"
+    assert gmax_path(1000) == "direct" and gmax_path(88) == "direct"
+    for n in (64, 256, 1000, 2048, 4096, 4608, 12288, 16384, 88, 3000):
+        want = "fft" if fft_plan(*best_factorization(n)) else "direct"
+        assert gmax_path(n) == want, n
+
+
+def test_fft_path_reads_no_dft_table(cuda):
+    """At N = 2048 the kernel is given the W_N twiddles and null pointers
+    for the W_N1, twiddle and W_N2 tables: a read of any of them would
+    fault. Its output equals the wrapper's."""
+    from amcpy_tpu_torch.ops import _build
+    from amcpy_tpu_torch.ops.fft import device_fft_twiddles
+
+    x = _frames(16, 2048, seed=12)
+    i, q = _planes(x, cuda)
+    want = extract_features_fused(i, q)
+    lib = _build.load("features")
+    out = torch.empty_like(want)
+    err = lib.amc_fused_features(
+        i.data_ptr(), q.data_ptr(), device_fft_twiddles(2048, cuda).data_ptr(),
+        0, 0, 0, 0, 0, 0, out.data_ptr(), 16, 2048, 8, 256, 1,
+        torch.cuda.current_stream(cuda).cuda_stream,
+    )
+    _build.check(lib, err, "amc_fused_features")
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 def test_empty_batch_and_bad_inputs(cuda):
