@@ -50,6 +50,7 @@ SIGNATURES: dict[str, dict[str, tuple[list, object]]] = {
     "cnn_trunk": {
         "amc_cnn_trunk": ([_P] * 5 + [_I, _P, _I, _I, _P], _I),
         "amc_cnn_trunk_smem": ([_P, _I], _I),
+        "amc_cnn_trunk_path": ([_P, _I], _I),
         "amc_error_string": ([_I], ctypes.c_char_p),
     },
 }

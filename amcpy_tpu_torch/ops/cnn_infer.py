@@ -12,7 +12,14 @@ pooled ``(B, 2 * C_out)`` features:
   ``s = gamma / sqrt(var + 1e-5)``);
 * the per-frame RMS normalization, the k=1 conv stack with bias and ReLU,
   and the mean and max over time run inside the kernel, tile by tile along
-  the time axis, with the activations in shared memory.
+  the time axis, with the activations in registers or shared memory.
+
+The library has two kernels and routes by the widths (:func:`trunk_path`):
+the default stack ``(2, 32, 64, 128)`` runs on ``wgmma`` with the
+activations chained from layer to layer in registers and the weights
+resident in shared memory (``"wgmma"``); every other stack it can hold runs
+on ``mma.sync`` with the activations of a tile in shared memory
+(``"mma_sync"``).
 
 Numerics, held by :func:`cnn_trunk_plain` (the kernel's plain version):
 the RMS ``rsqrt(sum(I^2 + Q^2) / 2N + 1e-12)`` in float32; layer 0
@@ -36,6 +43,7 @@ from amcpy_tpu_torch.utils.device import no_tf32
 __all__ = [
     "supports_fused",
     "fold_bn_params",
+    "trunk_path",
     "cnn_trunk",
     "cnn_trunk_plain",
     "cnn_head",
@@ -119,14 +127,36 @@ def _check_trunk_args(i, q, convs) -> list[int]:
     return widths
 
 
+#: the stack ``trunk_wgmma_kernel`` is compiled for: I/Q in, then
+#: ``IQConvNet``'s default channels
+WGMMA_WIDTHS = (2, 32, 64, 128)
+#: ``amc_cnn_trunk_path``'s codes; 0 means the library cannot hold the stack
+_LIB_PATHS = {2: "wgmma", 1: "mma_sync"}
+
+
+def trunk_path(widths) -> str:
+    """The kernel ``amc_cnn_trunk`` routes a stack of widths
+    ``[2, C_0, ..., C_{L-1}]`` to, as the library does
+    (``amc_cnn_trunk_path``): ``"wgmma"`` for the default stack
+    ``(2, 32, 64, 128)``, else ``"mma_sync"``. Which other stacks the
+    mma.sync kernel can hold (1 to 8 layers, multiples of 16 channels after
+    the first layer, within 227 KB of shared memory) only the library
+    says: :func:`cnn_trunk` raises for the rest. A plain function: it
+    needs no card and builds nothing."""
+    return "wgmma" if tuple(int(w) for w in widths) == WGMMA_WIDTHS else "mma_sync"
+
+
 def cnn_trunk(
     i: torch.Tensor, q: torch.Tensor, convs: list[tuple[torch.Tensor, torch.Tensor]]
 ) -> torch.Tensor:
     """Pooled trunk features ``(B, 2 * C_out)`` from ``(B, N)`` planes and
     folded layers (:func:`fold_bn_params`). A CUDA tensor launches
-    ``amc_cnn_trunk`` (``cnn_trunk.launches`` counts it) or raises; a CPU
-    tensor takes :func:`cnn_trunk_plain`. Widths the kernel cannot hold
-    raise ``ValueError``."""
+    ``amc_cnn_trunk`` (``cnn_trunk.launches`` counts every launch), which
+    runs the kernel :func:`trunk_path` names for the widths
+    (``cnn_trunk.launches_by_path`` counts by the kernel the library
+    chose), or raises; a CPU tensor takes :func:`cnn_trunk_plain`. On
+    CUDA, widths the library cannot hold raise ``ValueError`` before any
+    launch."""
     widths = _check_trunk_args(i, q, convs)
     if i.device.type == "cpu":
         return cnn_trunk_plain(i, q, convs)
@@ -142,7 +172,8 @@ def cnn_trunk(
     lib = _build.load("cnn_trunk")
     n_layers = len(convs)
     c_widths = (ctypes.c_int * (n_layers + 1))(*widths)
-    if lib.amc_cnn_trunk_smem(c_widths, n_layers) == 0:
+    path = _LIB_PATHS.get(lib.amc_cnn_trunk_path(c_widths, n_layers))
+    if path is None:
         raise ValueError(
             f"the CNN trunk kernel cannot hold widths {widths}: layers after "
             "the first take multiples of 16 channels, at most "
@@ -161,10 +192,13 @@ def cnn_trunk(
         )
     _build.check(lib, err, "amc_cnn_trunk")
     cnn_trunk.launches += 1
+    cnn_trunk.launches_by_path[path] += 1
     return out
 
 
 cnn_trunk.launches = 0
+#: the same launches, by the kernel that ran (:func:`trunk_path`)
+cnn_trunk.launches_by_path = {"wgmma": 0, "mma_sync": 0}
 
 
 def cnn_head(pooled: torch.Tensor, dense) -> torch.Tensor:

@@ -17,8 +17,11 @@ Phases, each printing one JSON line:
    of two: 256 ... 16384 and 12288 = 24 x 512; the direct stage 2 at
    1000 = 8 x 125 and 88 = 8 x 11), each check printing its path and
    gamma_max's own share of the tolerance; K3 (the CNN trunk) on the same
-   kind of frames and a numpy-seeded folded default stack (32, 64, 128),
-   within 2e-2 + 2e-2 * |want| on the pooled features; times
+   kind of frames and numpy-seeded folded stacks, within
+   2e-2 + 2e-2 * |want| on the pooled features: the default stack
+   (32, 64, 128) on its wgmma kernel at the main path's shapes, at ragged
+   time axes (5 x 1000, 3 x 40) and small batches, and (16, 48, 32, 16) on
+   the mma.sync kernel, each check printing the kernel that ran; times
    of the kernel, of the plain version, of one PyTorch library call where
    one computes the same function, and for K3 of the module forward;
 4. extraction — the main path: a numpy-made ``all_modulations.mat`` at the
@@ -43,7 +46,8 @@ Phases, each printing one JSON line:
    0.08, argmax identical where its top-two margin exceeds 0.16) and
    against the plain trunk plus head on the card (K3's tolerance), then
    timed; the whole 96,000-frame dataset in 4096-frame requests (frames/s);
-   the stage split of a 4096-frame request; ``classify_stream``;
+   the stage split of a 4096-frame request; ``classify_stream``; every K3
+   launch of the path must have run the wgmma kernel;
 7. evaluation — ``evaluate_by_snr`` of phase 5's MLP on phase 4's
    artifacts and ``evaluate_by_snr_raw`` of phase 6's CNN on the dataset
    (module forwards, as in the JAX package), each a finite (6, 16)
@@ -61,13 +65,16 @@ failure raises and the process exits non-zero; without a CUDA device it
 exits 1 and prints no result.
 
 ``bound_ms`` counts what each kernel's function needs, whatever the
-design (``k1_work``, ``k2_work``, ``k3_work``); K1's counts gamma_max as
-the FFT that its main path (N = 2048) runs.
+design (``k1_work``, ``k2_work``, ``k3_work``), FP32 work in lane
+operations (``FP32_LANE_OPS_PER_S``); K1's counts gamma_max's FFT at the real
+additions of a split-radix FFT, a floor on its lane operations. K3's row also names the kernel that
+ran at the timed shape (``path``) and that kernel's registers and spills.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -80,16 +87,24 @@ import numpy as np
 
 #: published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
 BF16_TENSOR_FLOP_PER_S = 989e12
-#: the fewest operations per sample the 17 statistics need, whatever the
-#: kernel, each sample's values computed once (a transcendental counted as
-#: one): amplitude 4 (|x|^2, sqrt), phase 2 (atan2, |phase|), the means'
-#: sums and max|x| 4, the centred phase sums 6, the normalized amplitude
-#: and its sums 5, its centred sums 8, the wrapped phase step and its sum
-#: 6, its centred sums 5, the powers of x / max|x| behind the nine mixed
-#: moments 26 and their 14 sums 14
-STATS_OPS_PER_SAMPLE = 80
+#: FP32 work outside the tensor cores is counted in lane operations, each
+#: one issue slot on one of an SM's 128 FP32 lanes: 132 SMs x 128 lanes x
+#: 1.98 GHz = 33.45e12 a second. A multiply and the add it feeds are one
+#: fused multiply-add (the data sheet's 67 TFLOP/s counts that as two
+#: operations); an add, a maximum, a conversion or a ReLU on its own is one
+#: lane operation, as is a conversion that rounds two values at once
+FP32_LANE_OPS_PER_S = 132 * 128 * 1.98e9
+#: the fewest lane operations per sample the 17 statistics need, whatever
+#: the kernel, each sample's values computed once (a transcendental counted
+#: as one, a product fused with the add it feeds): amplitude 3 (|x|^2 as a
+#: multiply and an FMA, sqrt), phase 2 (atan2, |phase|), the means' sums
+#: and max|x| 4, the centred phase sums 4 (a difference and an FMA each),
+#: the normalized amplitude and its sums 4, its centred sums 6, the wrapped
+#: phase step and its sum 6, its centred sums 4, the powers of x / max|x|
+#: behind the nine mixed moments with their 14 sums 26 (the last product of
+#: each summed power fused with its sum)
+STATS_LANE_OPS_PER_SAMPLE = 59
 
 TOL_SCALE, TOL_REL = 2e-4, 2e-5
 #: K3 against its plain version, pooled features and logits:
@@ -192,40 +207,47 @@ def cuda_ms(fn, inputs: list[tuple], reps: int) -> float:
 
 
 def k1_work(b: int, n: int) -> tuple[float, float]:
-    """(bytes, operations) the fused kernel's function needs on a (b, n)
-    batch: I and Q read once, 18 floats written per frame, one table of N
-    complex twiddles read once; the statistics, and gamma_max as an FFT
-    (5 N log2 N) followed by |X|^2 and its maximum (4 N)."""
+    """(bytes, FP32 lane operations) the fused kernel's function needs on a
+    (b, n) batch: I and Q read once, 18 floats written per frame, one table
+    of N complex twiddles read once; the statistics, and gamma_max as an
+    FFT followed by |X|^2 (a multiply and an FMA) and its maximum (3 N).
+    The FFT is counted at the real additions of the split-radix FFT,
+    3 N log2 N - 3 N + 4: a lane operation makes at most one addition, and
+    every multiplication can ride in a fused multiply-add."""
     nbytes = 8.0 * b * n + 72.0 * b + 8.0 * n
-    ops = b * (STATS_OPS_PER_SAMPLE * n + 5.0 * n * np.log2(n) + 4.0 * n)
+    fft = 3.0 * n * np.log2(n) - 3.0 * n + 4.0
+    ops = b * (STATS_LANE_OPS_PER_SAMPLE * n + fft + 3.0 * n)
     return nbytes, ops
 
 
 def k2_work(b: int, n: int) -> tuple[float, float]:
-    """(bytes, operations) of the statistics kernel on a (b, 2, n) batch."""
-    return 8.0 * b * n + 72.0 * b, float(b) * n * STATS_OPS_PER_SAMPLE
+    """(bytes, FP32 lane operations) of the statistics kernel on a
+    (b, 2, n) batch."""
+    return 8.0 * b * n + 72.0 * b, float(b) * n * STATS_LANE_OPS_PER_SAMPLE
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, lane_ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOP_PER_S * 1e3
+    t_ops = lane_ops / FP32_LANE_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def k3_work(b: int, n: int) -> tuple[float, float, float]:
-    """(bytes, bf16 tensor-core operations, FP32 operations) of the default
-    CNN trunk on (b, n) planes: I and Q read once, 2 * C_out floats written per
-    frame, the folded weights and biases read once; the products of the
-    layers after the first (2 * C_out * C_in per sample each); per sample
-    the RMS (2 squares, an add, the running sum, 2 scalings: 6), layer 0
-    (2 products, 2 adds, ReLU: 5 per channel), bias and ReLU of every later
-    layer (2 per channel) and the mean and max pooling (2 per channel)."""
+    """(bytes, bf16 tensor-core operations, FP32 lane operations) of the
+    default CNN trunk on (b, n) planes: I and Q read once, 2 * C_out floats
+    written per frame, the folded weights and biases read once; the
+    products of the layers after the first (2 * C_out * C_in per sample
+    each); per sample the RMS (I^2 + Q^2 into the running sum as two FMAs,
+    two scalings: 4), layer 0 (w_i I + b, then + w_q Q: two FMAs a
+    channel), the ReLU and bf16 rounding of each layer that feeds the
+    tensor cores (one conversion with ReLU per two values), the biases of
+    the later layers (the start of their accumulators: no lane operation)
+    and the last layer's ReLU, running sum and running max (3 a channel)."""
     widths = CNN_WIDTHS
     pairs = list(zip(widths[:-1], widths[1:]))
     nbytes = 8.0 * b * n + 8.0 * b * widths[-1] + 4.0 * sum(o * (i + 1) for i, o in pairs)
     tensor = float(b) * n * sum(2.0 * o * i for i, o in pairs[1:])
-    fp32 = float(b) * n * (6 + 5 * widths[1] + sum(2 * o for _, o in pairs[1:])
-                           + 2 * widths[-1])
+    fp32 = float(b) * n * (4 + 2 * widths[1] + sum(widths[1:-1]) / 2 + 3 * widths[-1])
     return nbytes, tensor, fp32
 
 
@@ -235,19 +257,40 @@ def k3_bound(b: int, n: int) -> tuple[float, str, dict[str, float]]:
     nbytes, tensor, fp32 = k3_work(b, n)
     parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "bf16_tensor_ops": tensor / BF16_TENSOR_FLOP_PER_S * 1e3,
-             "fp32_ops": fp32 / FP32_FLOP_PER_S * 1e3}
+             "fp32_lane_ops": fp32 / FP32_LANE_OPS_PER_S * 1e3}
     ms = max(parts.values())
     return ms, "bytes" if ms == parts["bytes"] else "operations", parts
 
 
-def folded_default_stack(torch, dev, seed: int) -> list[tuple]:
-    """A numpy-seeded folded default stack: (C_out, C_in) weights of scale
-    1/sqrt(C_in) and (C_out, 1) biases of scale 0.1, float32 on ``dev``."""
+def ptxas_report(log: str) -> dict[str, dict[str, int]]:
+    """Registers and spilled bytes of each kernel in an ``nvcc -Xptxas -v``
+    log, by its (mangled) entry name."""
+    report: dict[str, dict[str, int]] = {}
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            report[entry] = {}
+        elif entry is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                report[entry].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report[entry]["registers"] = int(m[1])
+    return report
+
+
+def folded_default_stack(torch, dev, seed: int, widths=CNN_WIDTHS) -> list[tuple]:
+    """A numpy-seeded folded stack (the default widths unless given):
+    (C_out, C_in) weights of scale 1/sqrt(C_in) and (C_out, 1) biases of
+    scale 0.1, float32 on ``dev``."""
     rng = np.random.default_rng(seed)
     return [
         (torch.from_numpy(rng.normal(0, a**-0.5, (o, a)).astype(np.float32)).to(dev),
          torch.from_numpy(rng.normal(0, 0.1, (o, 1)).astype(np.float32)).to(dev))
-        for a, o in zip(CNN_WIDTHS[:-1], CNN_WIDTHS[1:])
+        for a, o in zip(widths[:-1], widths[1:])
     ]
 
 
@@ -367,28 +410,44 @@ def phase_kernels(torch, dev) -> dict[str, dict]:
     return rows
 
 
-def k3_check_and_time(torch, dev, checks: list) -> dict:
-    """K3 against ``cnn_trunk_plain`` on the card at the main path's shapes,
-    then its time at 4096 x 2048 beside the plain version's and the module
-    forward's (cuBLAS bf16 products, activations in device memory)."""
-    from amcpy_tpu_torch.ops.cnn_infer import cnn_trunk, cnn_trunk_plain
+#: K3's checks: (widths, (b, n)); the default stack (the wgmma route) at
+#: the main path's shapes, ragged time axes (1000, 40) and batches below
+#: the warpgroups resident on the card, and a deeper stack (the mma.sync
+#: route)
+K3_CHECKS = [(CNN_WIDTHS, shape) for shape in
+             [(4096, 2048), (1000, 2048), (37, 1024), (64, 256), (5, 1000), (3, 40)]] + [
+    ((2, 16, 48, 32, 16), (50, 700)),
+]
 
-    convs = folded_default_stack(torch, dev, seed=20)
+
+def k3_check_and_time(torch, dev, checks: list) -> dict:
+    """K3 against ``cnn_trunk_plain`` on the card (``K3_CHECKS``, each
+    with the kernel it ran), then its time at 4096 x 2048 beside the plain
+    version's and the module forward's (cuBLAS bf16 products, activations
+    in device memory)."""
+    from amcpy_tpu_torch.ops.cnn_infer import cnn_trunk, cnn_trunk_plain, trunk_path
+
     k3 = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
     before = cnn_trunk.launches
-    for seed, (b, n) in enumerate([(4096, 2048), (1000, 2048), (37, 1024), (64, 256)],
-                                  start=20):
+    for seed, (widths, (b, n)) in enumerate(K3_CHECKS, start=20):
+        convs = folded_default_stack(torch, dev, 20, widths)
         x = test_frames(b, n, seed)
         i = torch.from_numpy(np.ascontiguousarray(x.real)).to(dev)
         q = torch.from_numpy(np.ascontiguousarray(x.imag)).to(dev)
+        by_path = dict(cnn_trunk.launches_by_path)
         got = cnn_trunk(i, q, convs)
         torch.cuda.synchronize()
+        ran = [p for p, c in cnn_trunk.launches_by_path.items() if c > by_path[p]]
+        want_path = "wgmma" if widths == CNN_WIDTHS else "mma_sync"
+        if ran != [want_path] or trunk_path(widths) != want_path:
+            raise AssertionError(f"K3 {widths} ran {ran}, not {want_path}")
         err, ratio = k3_error(got, cnn_trunk_plain(i, q, convs))
-        checks.append({"kernel": "K3", "shape": [b, n], "max_abs_err": err,
+        checks.append({"kernel": "K3", "widths": list(widths), "shape": [b, n],
+                       "path": want_path, "max_abs_err": err,
                        "max_err_over_tol": ratio})
         k3["max_abs_err"] = max(k3["max_abs_err"], err)
         k3["max_err_over_tol"] = max(k3["max_err_over_tol"], ratio)
-        if (b, n) == (4096, 2048):
+        if (widths, (b, n)) == (CNN_WIDTHS, (4096, 2048)):
             planes = rotated(i, q)
 
             def trunk(a, c):
@@ -408,6 +467,7 @@ def k3_check_and_time(torch, dev, checks: list) -> dict:
             k3["library_ms"] = None
             k3["bound_ms"], k3["bound_by"], k3["bound_parts_ms"] = k3_bound(b, n)
             k3["shape"] = [b, n]
+            k3["path"] = trunk_path(widths)
     if cnn_trunk.launches <= before:
         raise AssertionError("the CNN trunk kernel's launch counter did not rise")
     return k3
@@ -491,15 +551,23 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(_build.SIGNATURES)) as pool:
         libs = list(pool.map(_build.build, _build.SIGNATURES))
+    logs = {name: lib.with_suffix(".log").read_text()
+            for name, lib in zip(_build.SIGNATURES, libs)}
     ptxas = [
-        line.strip() for lib in libs
-        for line in lib.with_suffix(".log").read_text().splitlines()
+        line.strip() for log in logs.values() for line in log.splitlines()
         if "registers" in line or "spill" in line or "Compiling entry" in line
+        or "warning" in line.lower()
     ]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": list(_build.SIGNATURES), "ptxas": ptxas})
+    # K3's wgmma kernel: registers and spills, for its row of the kernels line
+    wgmma_ptxas = [r for entry, r in ptxas_report(logs["cnn_trunk"]).items()
+                   if "trunk_wgmma_kernel" in entry]
+    if len(wgmma_ptxas) != 1:
+        raise AssertionError("ptxas reported no trunk_wgmma_kernel")
 
     rows = phase_kernels(torch, dev)
+    rows["cnn_trunk"].update(wgmma_ptxas[0])
 
     work = Path(tempfile.mkdtemp(prefix="amc_chip_smoke_"))
     try:
@@ -519,12 +587,15 @@ def main() -> int:
             return {"fused": extract_features_fused.launches,
                     "pallas": extract_features_pallas.launches,
                     "cnn_trunk": cnn_trunk.launches,
+                    "cnn_trunk_wgmma": cnn_trunk.launches_by_path["wgmma"],
                     "reroutes": extract_features_fused_any.reroutes}
 
         def zero_counts() -> None:
             extract_features_fused.launches = 0
             extract_features_pallas.launches = 0
             cnn_trunk.launches = 0
+            for path in cnn_trunk.launches_by_path:
+                cnn_trunk.launches_by_path[path] = 0
             extract_features_fused_any.reroutes = 0
 
         # each path is driven with every count set to 0 just before it and
@@ -747,6 +818,10 @@ def main() -> int:
         if not np.array_equal(cnn_preds, cpipe.predict(stream_frames)):
             raise AssertionError("CNN classify_stream disagrees with predict")
         paths["serving_cnn"] = ("cnn_trunk", counts())
+        # the default checkpoint's requests all went through the wgmma kernel
+        c = paths["serving_cnn"][1]
+        if c["cnn_trunk_wgmma"] != c["cnn_trunk"]:
+            raise AssertionError(f"CNN serving left the wgmma kernel: {c}")
         emit({"phase": "serving_cnn", "module_atol": 0.08, "clear_margin": 0.16,
               "plain_tolerance": f"{K3_TOL}*(1 + |want|)",
               "requests": cnn_requests, "dataset_frames": n_frames,
@@ -807,10 +882,15 @@ def main() -> int:
             "library_ms": r["library_ms"], "shape": r["shape"],
             # K1: how gamma_max was computed at the timed shape
             "gmax_path": r.get("gmax_path"),
-            # K3: the module forward's time on the same frames, and the
-            # three times its bound is the largest of
+            # K3: the module forward's time on the same frames, the three
+            # times its bound is the largest of, the kernel that ran at the
+            # timed shape, and that kernel's registers and spills
             "module_forward_ms": r.get("module_forward_ms"),
             "bound_parts_ms": r.get("bound_parts_ms"),
+            "path": r.get("path"),
+            "registers": r.get("registers"),
+            "spill_stores": r.get("spill_stores"),
+            "spill_loads": r.get("spill_loads"),
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

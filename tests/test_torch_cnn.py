@@ -44,6 +44,7 @@ from amcpy_tpu_torch.ops.cnn_infer import (
     cnn_trunk_plain,
     fold_bn_params,
     supports_fused,
+    trunk_path,
 )
 from amcpy_tpu_torch.preprocessing import Standardizer
 from amcpy_tpu_torch.serve import AMCPipeline
@@ -215,6 +216,68 @@ def test_plain_trunk_pools_mean_then_max():
     h = np.maximum(np.einsum("co,bot->bct", w0, xn) + b0, 0)
     np.testing.assert_allclose(got, np.concatenate([h.mean(-1), h.max(-1)], -1),
                                rtol=1e-5, atol=1e-6)
+
+
+def test_trunk_path_of_the_default_stack_is_wgmma():
+    """The default IQConvNet's folded widths take the wgmma kernel."""
+    model = IQConvNet(6)
+    widths = [2] + [int(w.shape[0]) for w, _ in fold_bn_params(model)["convs"]]
+    assert widths == [2, 32, 64, 128]
+    assert trunk_path(widths) == trunk_path((2, 32, 64, 128)) == "wgmma"
+
+
+@pytest.mark.parametrize(
+    "widths", [(2, 32), (2, 20), (2, 32, 64), (2, 16, 48, 32, 16), (2, 32, 64, 128, 16),
+               (2, 32, 64, 112), (2, 16, 1024), (2,) + (16,) * 8]
+)
+def test_trunk_path_of_other_stacks_is_mma_sync(widths):
+    assert trunk_path(widths) == "mma_sync"
+
+
+@pytest.mark.parametrize(
+    "shapes,match",
+    [([(32, 3), (64, 32), (128, 64)], "do not follow"),  # C_in other than 2
+     ([(32, 2), (64, 16)], "do not follow"),  # a layer that skips a width
+     ([], "at least one layer")],
+)
+def test_cnn_trunk_refuses_malformed_stacks_before_any_launch(monkeypatch, shapes, match):
+    """A stack whose layers do not chain from C_in = 2 raises ``ValueError``
+    on any device before the library is loaded; the widths only the library
+    refuses (not multiples of 16, more than eight layers, more than 227 KB
+    of shared memory) are the card tests'."""
+    from amcpy_tpu_torch.ops import _build
+
+    def no_build(name):
+        raise AssertionError("a malformed stack must not reach the library")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    x = _frames(2, 40, seed=3)
+    i, q = torch.from_numpy(x[:, 0].copy()), torch.from_numpy(x[:, 1].copy())
+    convs = [(torch.ones((o, a)), torch.zeros((o, 1))) for o, a in shapes]
+    launches = cnn_trunk.launches
+    with pytest.raises(ValueError, match=match):
+        cnn_trunk(i, q, convs)
+    assert cnn_trunk.launches == launches
+
+
+def test_trunk_path_is_plain_and_cpu_route_is_unchanged(monkeypatch):
+    """``trunk_path`` builds nothing, and a CPU tensor still takes the
+    plain version for any widths, counting no launch."""
+    from amcpy_tpu_torch.ops import _build
+
+    def no_build(name):
+        raise AssertionError("trunk_path must not build the library")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    assert trunk_path((2, 32, 64, 128)) == "wgmma"
+    x = _frames(2, 40, seed=3)
+    i, q = torch.from_numpy(x[:, 0].copy()), torch.from_numpy(x[:, 1].copy())
+    rng = np.random.default_rng(4)
+    convs = [(torch.from_numpy(rng.normal(size=(o, a)).astype(np.float32)),
+              torch.zeros((o, 1))) for a, o in ((2, 24), (24, 40))]
+    launches, by_path = cnn_trunk.launches, dict(cnn_trunk.launches_by_path)
+    assert cnn_trunk(i, q, convs).shape == (2, 80)
+    assert cnn_trunk.launches == launches and cnn_trunk.launches_by_path == by_path
 
 
 def _cfg(root, **compute):

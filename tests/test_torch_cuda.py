@@ -24,7 +24,7 @@ import torch
 
 from amcpy_tpu_torch.config import Config
 from amcpy_tpu_torch.ops import features as F
-from amcpy_tpu_torch.ops.cnn_infer import cnn_trunk, cnn_trunk_plain
+from amcpy_tpu_torch.ops.cnn_infer import cnn_trunk, cnn_trunk_plain, trunk_path
 from amcpy_tpu_torch.ops.fused import extract_features_fused, split_planes
 from amcpy_tpu_torch.ops.pallas_features import extract_features_pallas
 
@@ -273,14 +273,73 @@ def _assert_trunk_matches(i, q, convs):
     torch.testing.assert_close(got, want, atol=K3_TOL, rtol=K3_TOL)
 
 
+def _library_path(widths):
+    """The library's own route for a stack: "wgmma", "mma_sync" or None
+    (refused)."""
+    import ctypes
+
+    from amcpy_tpu_torch.ops import _build
+
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+    code = _build.load("cnn_trunk").amc_cnn_trunk_path(c_widths, len(widths) - 1)
+    return {2: "wgmma", 1: "mma_sync", 0: None}[code]
+
+
 @pytest.mark.parametrize(
-    "b,n", [(4096, 2048), (1000, 2048), (37, 1024), (64, 256), (5, 1000), (3, 100)]
+    "b,n",
+    [(4096, 2048), (1000, 2048), (37, 1024), (64, 256), (5, 1000), (3, 100),
+     (3, 40), (1, 2048), (3, 64), (2, 1)],
 )
 def test_cnn_trunk_matches_plain_on_card(cuda, b, n):
-    """The smoke's four shapes, and time axes that end in a ragged tile
-    (1000 and 100 samples are not multiples of the kernel's 64)."""
+    """The default stack on its wgmma route: the smoke's shapes, time axes
+    that end in a ragged tile (1000, 100 and 40 samples are not multiples
+    of the kernel's 64; 40 and 1 are shorter than one tile) and batches
+    smaller than the warpgroups resident on the card (1, 2, 3, 5)."""
+    assert trunk_path(DEFAULT_WIDTHS) == _library_path(DEFAULT_WIDTHS) == "wgmma"
     x = _frames(b, n, seed=b + n)
     _assert_trunk_matches(*_planes(x, cuda), _stack(DEFAULT_WIDTHS, cuda))
+
+
+def _one_hot(n_out, n_in, mult, add, dev):
+    """(n_out, n_in) weights whose row o holds a single 1 at column
+    (mult * o + add) % n_in, and zero (n_out, 1) biases."""
+    cols = (mult * np.arange(n_out) + add) % n_in
+    w = np.zeros((n_out, n_in), np.float32)
+    w[np.arange(n_out), cols] = 1.0
+    return (torch.from_numpy(w).to(dev), torch.zeros((n_out, 1), device=dev)), cols
+
+
+@pytest.mark.parametrize("n", [2048, 100])
+def test_cnn_trunk_wgmma_layout_with_one_hot_weights(cuda, n):
+    """With one-hot (permutation) weights and zero biases each output
+    channel of the default stack copies one channel of layer 0, so a wrong
+    descriptor, core-matrix layout or fragment mapping shows as a readable
+    permutation: each pooled output is matched to the layer-0 channel whose
+    pooled (mean, max) it equals, and the map is compared with the one the
+    weights name."""
+    rng = np.random.default_rng(17)
+    w0 = torch.from_numpy(rng.normal(0, 1, (32, 2)).astype(np.float32)).to(cuda)
+    layer0 = (w0, torch.zeros((32, 1), device=cuda))
+    layer1, cols1 = _one_hot(64, 32, 13, 7, cuda)
+    layer2, cols2 = _one_hot(128, 64, 37, 5, cuda)
+    want_map = cols1[cols2]
+    x = _frames(8, n, seed=18)
+    i, q = _planes(x, cuda)
+    got = cnn_trunk(i, q, [layer0, layer1, layer2]).cpu().double().numpy()
+    # layer 0 pooled after its bf16 rounding (an identity layer rounds it)
+    eye = (torch.eye(32, device=cuda), torch.zeros((32, 1), device=cuda))
+    h0 = cnn_trunk_plain(i, q, [layer0, eye]).cpu().double().numpy()  # (8, 2 * 32)
+    h0 = np.stack([h0[:, :32], h0[:, 32:]], -1)  # (frame, channel, mean/max)
+    out = np.stack([got[:, :128], got[:, 128:]], -1)  # (frame, o, mean/max)
+    dist = np.abs(out[:, :, None, :] - h0[:, None, :, :]).sum(axis=(0, 3))
+    seen_map = dist.argmin(axis=1)
+    wrong = np.nonzero(seen_map != want_map)[0]
+    assert wrong.size == 0, {
+        "output channels": wrong[:16].tolist(),
+        "copy layer-0 channel": seen_map[wrong[:16]].tolist(),
+        "should copy": want_map[wrong[:16]].tolist(),
+    }
+    _assert_trunk_matches(i, q, [layer0, layer1, layer2])
 
 
 @pytest.mark.parametrize("log_scale", [-6.0, 6.0])
@@ -290,17 +349,39 @@ def test_cnn_trunk_extreme_scales(cuda, log_scale):
     _assert_trunk_matches(*_planes(x, cuda), _stack(DEFAULT_WIDTHS, cuda))
 
 
-@pytest.mark.parametrize("widths", [(2, 32), (2, 32, 64), (2, 20), (2, 16, 48, 32, 16)])
+@pytest.mark.parametrize(
+    "widths",
+    [(2, 32), (2, 32, 64), (2, 20), (2, 16, 48, 32, 16), (2, 1), (2, 32, 64, 128, 16),
+     (2, 32, 64, 112), (2, 16, 64, 128), (2, 16, 1024), (2,) + (16,) * 8],
+)
 def test_cnn_trunk_other_stacks(cuda, widths):
-    """L = 1 (no tensor-core layer, any width), L = 2, and a deeper stack."""
+    """L = 1 (no tensor-core layer, any width), L = 2, deeper stacks, the
+    default stack with a layer more or a width changed, a wide last layer
+    and eight layers: the mma.sync route, launched and counted as such."""
+    assert trunk_path(widths) == _library_path(widths) == "mma_sync"
     x = _frames(50, 700, seed=4)
+    by_path = dict(cnn_trunk.launches_by_path)
     _assert_trunk_matches(*_planes(x, cuda), _stack(widths, cuda))
+    assert cnn_trunk.launches_by_path == {**by_path, "mma_sync": by_path["mma_sync"] + 1}
 
 
-@pytest.mark.parametrize("widths", [(2, 24, 40), (2, 32, 64, 72), (2,) + (16,) * 9])
+@pytest.mark.parametrize(
+    "widths",
+    [(2, 24, 40), (2, 32, 64, 72), (2,) + (16,) * 9, (2, 3000), (2, 16, 2048),
+     (2, 256, 256), (2, 512, 512)],
+)
 def test_cnn_trunk_refuses_widths_it_cannot_hold(cuda, widths):
     """Layers after the first need multiples of 16 channels; at most eight
-    layers. The kernel refuses, never computes a wrong answer."""
+    layers; at most 227 KB of shared memory. The library refuses
+    (``amc_cnn_trunk_path`` and ``amc_cnn_trunk_smem`` give 0), and the
+    wrapper raises before any launch, never computing a wrong answer."""
+    import ctypes
+
+    from amcpy_tpu_torch.ops import _build
+
+    assert _library_path(widths) is None
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+    assert _build.load("cnn_trunk").amc_cnn_trunk_smem(c_widths, len(widths) - 1) == 0
     i, q = _planes(_frames(4, 64, seed=5), cuda)
     launches = cnn_trunk.launches
     with pytest.raises(ValueError, match="cannot hold"):
@@ -328,8 +409,10 @@ def test_cnn_pipeline_launches_the_trunk_once_per_request(cuda, tmp_path):
     assert pipe._kernel == "fused" and pipe._folded is not None
     for frames in (x, F.to_planar(x), x[:1]):
         launches = cnn_trunk.launches
+        on_wgmma = cnn_trunk.launches_by_path["wgmma"]
         pipe.logits(frames)
         assert cnn_trunk.launches == launches + 1
+        assert cnn_trunk.launches_by_path["wgmma"] == on_wgmma + 1
     module = AMCPipeline.from_checkpoint(
         cfg.replace(compute={"kernel": "xla"}), "default", device=cuda
     )
