@@ -1,0 +1,522 @@
+"""Command-line interface of the port: ``python -m amcpy_tpu_torch``.
+
+Counterpart of ``amcpy_tpu/cli.py`` for the subcommands ``info``,
+``extract``, ``train`` (``--model mlp|cnn``, ``--resume``), ``eval``,
+``quantize`` and ``classify``, with the same flags; every flag reaches the
+frozen config through ``Config.replace`` before any work starts. The
+global ``--device`` (default ``cuda``) is the counterpart of
+``JAX_PLATFORMS``: every command runs on that device, and ``cuda`` without
+a card raises. Where the JAX commands draw figures, these write the
+numbers: ``figures/{id}_figure_data.mat`` (the per-SNR accuracy matrix)
+and ``figures/cm-{id}.json`` (the confusion matrix), and print them.
+``generate``, ``plot``, ``serve``, ``sweep``, ``parity`` and ``full`` are
+not ported yet (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from amcpy_tpu_torch.config import Config
+
+__all__ = ["main", "build_parser"]
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="amc-torch",
+        description="amcpy_tpu_torch: Automatic Modulation Classification "
+                    "on PyTorch and CUDA",
+    )
+    parser.add_argument("--root", default=None, help="project root directory")
+    parser.add_argument("--config", default=None, help="YAML config file")
+    parser.add_argument(
+        "--device", default="cuda",
+        help="device every command runs on (cuda, cuda:N or cpu)",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    sub.add_parser("info", help="Show device and config diagnostics")
+
+    ext_p = sub.add_parser("extract", help="Extract features from raw .mat data")
+    ext_p.add_argument("--force", action="store_true",
+                       help="recompute even if artifacts exist")
+
+    train_p = sub.add_parser("train", help="Train the neural network")
+    train_p.add_argument(
+        "--model", choices=["mlp", "cnn"], default="mlp",
+        help="mlp = feature MLP (needs `extract` artifacts); cnn = raw-IQ "
+             "IQConvNet trained straight on all_modulations.mat",
+    )
+    train_p.add_argument("--epochs", type=int, default=None)
+    train_p.add_argument("--batch-size", type=int, default=None)
+    train_p.add_argument("--lr", type=float, default=None)
+    train_p.add_argument("--dropout", type=float, default=None)
+    train_p.add_argument(
+        "--optimizer", choices=["rmsprop", "adam", "nadam"], default=None
+    )
+    train_p.add_argument("--activation", default=None)
+    train_p.add_argument("--seed", type=int, default=None)
+    train_p.add_argument(
+        "--resume", default=None, metavar="MODEL_ID",
+        help="resume mid-training from a checkpoint (weights + optimizer "
+             "state + epoch counter)",
+    )
+
+    eval_p = sub.add_parser("eval", help="Evaluate a trained model")
+    eval_p.add_argument("model_id", nargs="?", default=None)
+    eval_p.add_argument(
+        "--mode", choices=["training", "test"], default="test",
+        help="with --full-data: training = high-SNR only; test = all SNR",
+    )
+    eval_p.add_argument(
+        "--full-data", action="store_true",
+        help="confusion matrix over the FULL --mode dataset (includes "
+             "trained-on frames). Default: the checkpoint's own held-out "
+             "split, the confusion matrix `train` reports",
+    )
+
+    quant_p = sub.add_parser("quantize", help="Quantize model for ARM deployment")
+    quant_p.add_argument("model_id", nargs="?", default=None)
+    quant_p.add_argument("--range-mode", choices=["full", "reference"], default="full")
+    quant_p.add_argument(
+        "--no-fold-bn", action="store_true",
+        help="export raw Dense weights without folding BatchNorm",
+    )
+    quant_p.add_argument(
+        "--compare", action="store_true",
+        help="evaluate the int16 fixed-point model against float32: per-SNR "
+             "accuracy of both and both confusion matrices",
+    )
+    quant_p.add_argument(
+        "--full-data", action="store_true",
+        help="with --compare: confusion matrices over the full dataset "
+             "instead of the checkpoint's held-out split",
+    )
+    quant_p.add_argument(
+        "--emit-c", action="store_true",
+        help="also write arm-data/amc_weights.h, a self-contained C header "
+             "(weights + standardizer + integer inference, bit-exact with "
+             "the int16 pipeline)",
+    )
+
+    cls_p = sub.add_parser("classify", help="Classify raw IQ frames with a trained model")
+    cls_p.add_argument(
+        "input", help=".mat dataset variable (mod name) or binary capture file"
+    )
+    cls_p.add_argument("--model-id", default=None)
+    cls_p.add_argument("--frame-size", type=int, default=None)
+    cls_p.add_argument("--out", default=None, help="write predictions to .mat/.npy")
+    return parser
+
+
+def _load_config(args: argparse.Namespace) -> Config:
+    cfg = Config.from_yaml(args.config) if args.config else Config()
+    if args.root:
+        cfg = cfg.replace(paths={"root": args.root})
+    return cfg
+
+
+def _require(path, hint: str) -> None:
+    if not path.exists():
+        raise SystemExit(f"error: {path} not found — {hint}")
+
+
+def _adopt_checkpoint_training(cfg: Config, args, meta) -> Config:
+    """On ``--resume``, the checkpoint's recorded architecture and
+    optimizer settings become the defaults (explicit flags still win):
+    resuming an rmsprop-trained model without ``--optimizer rmsprop`` must
+    restore an rmsprop optimizer around its saved state."""
+    t = meta["config"]["training"]
+    over = {}
+    if "hidden_sizes" in t:
+        over["hidden_sizes"] = tuple(t["hidden_sizes"])
+    for flag, key in (
+        ("dropout", "dropout"),
+        ("activation", "activation"),
+        ("optimizer", "optimizer"),
+        ("lr", "learning_rate"),
+        ("seed", "seed"),        # keeps the train/test split identical
+        ("_test_size", "test_size"),
+    ):
+        if getattr(args, flag, None) is None and key in t:
+            over[key] = t[key]
+    return cfg.replace(training=over) if over else cfg
+
+
+def _training_overrides(cfg: Config, args: argparse.Namespace) -> Config:
+    over = {}
+    for flag, key in [
+        ("epochs", "epochs"),
+        ("batch_size", "batch_size"),
+        ("lr", "learning_rate"),
+        ("dropout", "dropout"),
+        ("optimizer", "optimizer"),
+        ("activation", "activation"),
+        ("seed", "seed"),
+    ]:
+        v = getattr(args, flag, None)
+        if v is not None:
+            over[key] = v
+    return cfg.replace(training=over) if over else cfg
+
+
+def _load_features(cfg: Config) -> dict:
+    from amcpy_tpu_torch.data import io_mat
+
+    _require(
+        cfg.paths.calculated_features
+        / f"{cfg.signals.modulations_with_noise[0]}_features.mat",
+        "run `extract` first",
+    )
+    return {m: io_mat.load_features(cfg, m) for m in cfg.signals.modulations_with_noise}
+
+
+def _load_raw(cfg: Config) -> dict:
+    from amcpy_tpu_torch.data import io_mat
+
+    _require(cfg.paths.mat_data / cfg.paths.mat_filename,
+             "provide all_modulations.mat")
+    return io_mat.load_dataset(cfg)
+
+
+def _resume(cfg: Config, args):
+    """(cfg with the checkpoint's training settings, initial, prior
+    history, model, scaler) of ``--resume``; Nones without it."""
+    if not getattr(args, "resume", None):
+        return cfg, None, {}, None, None
+    from amcpy_tpu_torch.train.checkpoint import load_checkpoint
+
+    model, prev, scaler, meta = load_checkpoint(cfg, args.resume)
+    cfg = _adopt_checkpoint_training(cfg, args, meta)
+    initial = (model.state_dict(), prev.opt_state, int(meta.get("epoch") or 0))
+    print(f"Resuming from {args.resume} at epoch {initial[2]}")
+    return cfg, initial, meta.get("history") or {}, model, scaler
+
+
+def _report(cfg: Config, model_id: str, acc, cm) -> None:
+    """Write and print the per-SNR accuracy and the confusion matrix."""
+    import numpy as np
+
+    from amcpy_tpu_torch.train.evaluate import save_confusion_matrix, save_figure_data
+
+    save_figure_data(cfg, model_id, acc)
+    path = save_confusion_matrix(cfg, model_id, cm)
+    print(f"Confusion matrix -> {path}")
+    print(np.array2string(np.asarray(cm), precision=2))
+    print(f"Mean accuracy across SNR: {np.mean(acc):.4f}")
+
+
+def cmd_info(cfg: Config, args: argparse.Namespace) -> None:
+    import torch
+
+    import amcpy_tpu_torch
+    from amcpy_tpu_torch.extraction import resolve_kernel
+
+    print(f"amcpy_tpu_torch {amcpy_tpu_torch.__version__}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if torch.cuda.is_available():
+        print(f"devices: {torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}")
+    else:
+        print("devices: no CUDA device (use --device cpu)")
+    dev = torch.device(args.device)
+    kernel = cfg.compute.kernel
+    print(f"device: {dev}; extraction kernel: {kernel}"
+          + (f" (resolves to {resolve_kernel(kernel, dev)})" if kernel == "auto" else ""))
+    print(f"wire format: {cfg.compute.wire_format}")
+    print(f"project root: {cfg.paths.root}")
+    for name, p in [
+        ("dataset", cfg.paths.mat_data / cfg.paths.mat_filename),
+        ("features", cfg.paths.calculated_features),
+        ("checkpoints", cfg.paths.trained_ann),
+    ]:
+        if p.is_dir():
+            print(f"{name}: {p} ({len(list(p.glob('*')))} files)")
+        else:
+            print(f"{name}: {p} ({'present' if p.exists() else 'MISSING'})")
+
+
+def cmd_extract(cfg: Config, args: argparse.Namespace) -> None:
+    from amcpy_tpu_torch.extraction import run_extraction
+
+    _require(cfg.paths.mat_data / cfg.paths.mat_filename, "provide all_modulations.mat")
+    run_extraction(cfg, force=args.force, device=args.device)
+    print("All feature calculations complete!")
+
+
+def cmd_train(cfg: Config, args: argparse.Namespace) -> None:
+    if args.model == "cnn":
+        _cmd_train_cnn(cfg, args)
+        return
+    from amcpy_tpu_torch.preprocessing import preprocess
+    from amcpy_tpu_torch.train.checkpoint import save_checkpoint
+    from amcpy_tpu_torch.train.evaluate import confusion_counts, evaluate_by_snr
+    from amcpy_tpu_torch.train.training import train
+
+    cfg = _training_overrides(cfg, args)
+    cfg.paths.ensure_dirs()
+    features = _load_features(cfg)
+    cfg, initial, prior_history, _, prev_scaler = _resume(cfg, args)
+    x_train, x_test, y_train, y_test, scaler = preprocess(features, cfg)
+    if prev_scaler is not None:
+        # the same artifacts refit the same standardizer; keep the
+        # checkpoint's copy for the saved model regardless
+        scaler = prev_scaler
+    model, state, history, model_id = train(
+        cfg, x_train, y_train, x_test, y_test, initial=initial, device=args.device
+    )
+    # the whole run's record: restored epochs + new epochs
+    history = {k: list(prior_history.get(k, [])) + v for k, v in history.items()}
+    save_checkpoint(cfg, model_id, model, scaler, history, cfg.training.epochs, state=state)
+    print(f"Model saved -> {cfg.paths.trained_ann}/model-{model_id}.pt")
+    acc = evaluate_by_snr(model, scaler, features, cfg, device=args.device)
+    cm = confusion_counts(model, x_test, y_test, len(cfg.signals.modulations_with_noise),
+                          device=args.device)
+    _report(cfg, model_id, acc, cm)
+
+
+def _cmd_train_cnn(cfg: Config, args: argparse.Namespace) -> None:
+    """Train the raw-IQ CNN straight on the ``.mat`` dataset (no feature
+    stage), through the same training, evaluation and checkpoints as the
+    MLP."""
+    import numpy as np
+
+    from amcpy_tpu_torch.config import TrainingConfig
+    from amcpy_tpu_torch.models.cnn import IQConvNet
+    from amcpy_tpu_torch.preprocessing import Standardizer, preprocess_raw
+    from amcpy_tpu_torch.train.checkpoint import save_checkpoint
+    from amcpy_tpu_torch.train.evaluate import confusion_counts, evaluate_by_snr_raw
+    from amcpy_tpu_torch.train.training import train
+
+    # the config's training defaults are the MLP's tuned RMSprop 1.418e-3;
+    # they destabilize the CNN, whose default is Adam 3e-4 unless the user
+    # says otherwise
+    ref = TrainingConfig()
+    cnn_defaults = {}
+    if args.optimizer is None and cfg.training.optimizer == ref.optimizer:
+        cnn_defaults["optimizer"] = "adam"
+    if args.lr is None and cfg.training.learning_rate == ref.learning_rate:
+        cnn_defaults["learning_rate"] = 3e-4
+    if cnn_defaults:
+        cfg = cfg.replace(training=cnn_defaults)
+    cfg = _training_overrides(cfg, args)
+    cfg.paths.ensure_dirs()
+    data = _load_raw(cfg)
+    n_classes = len(cfg.signals.modulations_with_noise)
+    cfg, initial, prior_history, model, _ = _resume(cfg, args)
+    if model is None:
+        model = IQConvNet(
+            n_classes=n_classes, dropout=args.dropout if args.dropout is not None else 0.5
+        )
+    x_train, x_test, y_train, y_test = preprocess_raw(data, cfg)
+    model, state, history, model_id = train(
+        cfg, x_train, y_train, x_test, y_test, initial=initial, model=model,
+        device=args.device,
+    )
+    history = {k: list(prior_history.get(k, [])) + v for k, v in history.items()}
+    # the CNN is per-frame scale-invariant: an identity scaler keeps the
+    # sidecar's schema
+    scaler = Standardizer(mean=np.zeros(1, np.float32), std=np.ones(1, np.float32))
+    save_checkpoint(cfg, model_id, model, scaler, history, cfg.training.epochs, state=state)
+    print(f"Model saved -> {cfg.paths.trained_ann}/model-{model_id}.pt")
+    acc = evaluate_by_snr_raw(model, data, cfg, device=args.device)
+    cm = confusion_counts(model, x_test, y_test, n_classes, chunk=4096, device=args.device)
+    _report(cfg, model_id, acc, cm)
+
+
+def _eval_cm_dataset(cfg: Config, args, meta, build):
+    """Rows for the eval confusion matrix.
+
+    Default: the checkpoint's own held-out split, reproduced from the split
+    provenance in the sidecar (seed + test_size; the stratified split is a
+    pure function of those), so ``eval`` and ``train`` report the same
+    confusion matrix for the same checkpoint. ``--full-data`` takes the
+    full ``--mode`` dataset (trained-on frames included).
+    """
+    if getattr(args, "full_data", False):
+        return build(args.mode)
+    from amcpy_tpu_torch.preprocessing import stratified_split_indices
+
+    tmeta = meta["config"]["training"]
+    # the split reproduces the held-out set only if the assembled dataset
+    # is the one trained on: refuse on drift of the recorded provenance
+    smeta = meta["config"].get("signals")
+    drift = []
+    if smeta is not None:
+        for key, now in (
+            ("num_frames", cfg.signals.num_frames),
+            ("num_snr", cfg.signals.num_snr),
+            ("modulations", list(cfg.signals.modulations_with_noise)),
+        ):
+            if smeta.get(key) != now:
+                drift.append(f"{key}: checkpoint {smeta.get(key)} vs {now}")
+    if "training_snr" in tmeta and tmeta["training_snr"] != list(cfg.training.training_snr):
+        drift.append(
+            f"training_snr: checkpoint {tmeta['training_snr']} vs "
+            f"{list(cfg.training.training_snr)}"
+        )
+    if drift:
+        raise SystemExit(
+            "error: cannot reproduce this checkpoint's held-out split — "
+            "the dataset/config changed since training ("
+            + "; ".join(drift)
+            + "). Re-run with the training-time config, or pass "
+            "--full-data for the (labeled, trained-rows-included) "
+            "full-dataset confusion matrix."
+        )
+    x, y = build("training")
+    _, te = stratified_split_indices(
+        y,
+        float(tmeta.get("test_size", cfg.training.test_size)),
+        int(tmeta.get("seed", cfg.training.seed)),
+    )
+    return x[te], y[te]
+
+
+def cmd_eval(cfg: Config, args: argparse.Namespace) -> None:
+    from amcpy_tpu_torch.preprocessing import build_dataset, build_raw_dataset
+    from amcpy_tpu_torch.train.checkpoint import load_checkpoint, resolve_model_id
+    from amcpy_tpu_torch.train.evaluate import (
+        confusion_counts,
+        evaluate_by_snr,
+        evaluate_by_snr_raw,
+    )
+
+    model_id = resolve_model_id(cfg, args.model_id)
+    model, _, scaler, meta = load_checkpoint(cfg, model_id)
+    n_classes = len(cfg.signals.modulations_with_noise)
+    if (meta["config"].get("model") or {}).get("family") == "cnn":
+        data = _load_raw(cfg)
+        acc = evaluate_by_snr_raw(model, data, cfg, device=args.device)
+        x, y = _eval_cm_dataset(cfg, args, meta,
+                                lambda mode: build_raw_dataset(data, cfg, mode))
+        cm = confusion_counts(model, x, y, n_classes, chunk=4096, device=args.device)
+    else:
+        features = _load_features(cfg)
+        acc = evaluate_by_snr(model, scaler, features, cfg, device=args.device)
+        x, y = _eval_cm_dataset(cfg, args, meta,
+                                lambda mode: build_dataset(features, cfg, mode))
+        cm = confusion_counts(model, scaler.transform(x), y, n_classes, device=args.device)
+    _report(cfg, model_id, acc, cm)
+
+
+def cmd_quantize(cfg: Config, args: argparse.Namespace) -> None:
+    import numpy as np
+
+    from amcpy_tpu_torch.ops.quantize import emit_c_header, quantize_model
+    from amcpy_tpu_torch.preprocessing import build_dataset
+    from amcpy_tpu_torch.train.checkpoint import load_checkpoint, resolve_model_id
+
+    model_id = resolve_model_id(cfg, args.model_id)
+    model, _, scaler, meta = load_checkpoint(cfg, model_id)
+    if (meta["config"].get("model") or {}).get("family") == "cnn":
+        raise SystemExit(
+            "quantize targets the feature-MLP/MCU deployment path (Q-format "
+            f"Dense export); checkpoint {model_id} is a raw-IQ CNN. Train "
+            "with --model mlp to produce a quantizable model."
+        )
+    state = model.state_dict()
+    features = _load_features(cfg)
+    x, _ = build_dataset(features, cfg, "test")
+    sample = scaler.transform(x).astype(np.float32)
+    fold = not args.no_fold_bn
+    _, info = quantize_model(state, sample, cfg, range_mode=args.range_mode, fold_bn=fold)
+    for k, v in info.items():
+        print(f"  {k} -> {v}")
+    print(f"Quantized weights -> {cfg.paths.arm_data / 'w_and_b.mat'}")
+
+    if args.emit_c:
+        p = emit_c_header(state, scaler, cfg, info, fold_bn=fold)
+        print(f"C header -> {p} (bit-exact with the int16 pipeline)")
+
+    if args.compare:
+        import scipy.io
+
+        from amcpy_tpu_torch.ops.quantize import (
+            evaluate_quantized_by_snr,
+            quantized_predict,
+        )
+        from amcpy_tpu_torch.train.evaluate import (
+            confusion_counts,
+            evaluate_by_snr,
+            save_confusion_matrix,
+        )
+
+        acc_f = evaluate_by_snr(model, scaler, features, cfg, device=args.device)
+        acc_q = evaluate_quantized_by_snr(state, scaler, features, cfg, info, fold_bn=fold)
+        p = cfg.paths.figures / f"quant-accuracy-{model_id}.mat"
+        scipy.io.savemat(str(p), {"acc_float": acc_f, "acc_int16": acc_q})
+        print(f"Float vs int16 per-SNR accuracy -> {p}")
+        # held-out rows, as `eval` takes them
+        x_all, y_all = _eval_cm_dataset(
+            cfg, argparse.Namespace(mode="test", full_data=args.full_data), meta,
+            lambda mode: build_dataset(features, cfg, mode),
+        )
+        xs = scaler.transform(x_all).astype(np.float32)
+        n_cls = len(cfg.signals.modulations_with_noise)
+        cm_f = confusion_counts(model, xs, y_all, n_cls, device=args.device)
+        pred_q = quantized_predict(state, xs, cfg, info, fold_bn=fold, arithmetic="int")
+        cm_q = np.zeros((n_cls, n_cls), dtype=np.float64)
+        np.add.at(cm_q, (np.asarray(y_all), pred_q), 1.0)
+        cm_q = np.around(cm_q / np.maximum(cm_q.sum(axis=1, keepdims=True), 1), 2)
+        p_f = save_confusion_matrix(cfg, model_id, cm_f, tag="quant-cm-float")
+        p_q = save_confusion_matrix(cfg, model_id, cm_q, tag="quant-cm-int16")
+        print(f"Confusion matrices -> {p_f}, {p_q}")
+        delta = np.abs(acc_f - acc_q)
+        print(
+            f"Max per-SNR accuracy delta float vs int16: {delta.max() * 100:.2f} pp "
+            f"(mean {delta.mean() * 100:.2f} pp)"
+        )
+
+
+def cmd_classify(cfg: Config, args: argparse.Namespace) -> None:
+    import numpy as np
+
+    from amcpy_tpu_torch.serve import AMCPipeline
+
+    pipe = AMCPipeline.from_checkpoint(cfg, args.model_id, device=args.device)
+    mods = cfg.signals.modulations_with_noise
+    if args.input in mods:
+        from amcpy_tpu_torch.data import io_mat
+
+        raw = io_mat.load_modulation(cfg, args.input)  # (S, F, N)
+        preds = pipe.predict(raw.reshape(-1, raw.shape[-1])).reshape(raw.shape[:2])
+        acc = (preds == mods.index(args.input)).mean(axis=-1)
+        for si, a in enumerate(acc):
+            print(f"SNR {cfg.signals.snr_db[si]:+d} dB: {a * 100:5.1f}%")
+    else:
+        preds = pipe.classify_stream(args.input, frame_size=args.frame_size)
+        counts = np.bincount(preds, minlength=len(mods))
+        for mi, mod in enumerate(mods):
+            print(f"{mod}: {counts[mi]} frames "
+                  f"({100.0 * counts[mi] / max(len(preds), 1):.1f}%)")
+    if args.out:
+        if args.out.endswith(".mat"):
+            import scipy.io
+
+            scipy.io.savemat(args.out, {"predictions": preds})
+        else:
+            np.save(args.out, preds)
+        print(f"Predictions -> {args.out}")
+
+
+COMMANDS = {
+    "info": cmd_info,
+    "extract": cmd_extract,
+    "train": cmd_train,
+    "eval": cmd_eval,
+    "quantize": cmd_quantize,
+    "classify": cmd_classify,
+}
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = build_parser().parse_args(argv)
+    cfg = _load_config(args)
+    cfg.paths.ensure_dirs()
+    COMMANDS[args.command](cfg, args)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

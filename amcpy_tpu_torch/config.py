@@ -318,7 +318,13 @@ class Config:
 
     @classmethod
     def from_yaml(cls, path: str | Path) -> "Config":
-        import yaml
+        """Read a YAML config. Without PyYAML the file must be written in
+        YAML's JSON form (JSON is valid YAML), which ``json`` reads."""
+        text = Path(path).read_text()
+        try:
+            import yaml
+        except ImportError:
+            import json
 
-        with open(path) as f:
-            return cls.from_dict(yaml.safe_load(f) or {})
+            return cls.from_dict(json.loads(text) if text.strip() else {})
+        return cls.from_dict(yaml.safe_load(text) or {})

@@ -21,12 +21,25 @@ import scipy.io
 from amcpy_tpu_torch.config import Config
 
 __all__ = [
+    "save_dataset",
     "load_dataset",
     "load_modulation",
     "save_features",
     "load_features",
     "stacked_batch",
 ]
+
+
+def save_dataset(cfg: Config, data: dict[str, np.ndarray]) -> Path:
+    """Write ``{modulation: (num_snr, num_frames, N) complex}`` as
+    ``mat-data/all_modulations.mat`` (one variable per modulation)."""
+    cfg.paths.ensure_dirs()
+    path = cfg.paths.mat_data / cfg.paths.mat_filename
+    scipy.io.savemat(
+        str(path),
+        {cfg.signals.mat_info[m]: np.asarray(a) for m, a in data.items()},
+    )
+    return path
 
 
 def load_dataset(cfg: Config) -> dict[str, np.ndarray]:

@@ -1,18 +1,26 @@
 """MLP classifier over the standardized feature vector.
 
 Counterpart of ``amcpy_tpu/models/classifier.py`` (flax): one
-Linear -> BatchNorm1d -> activation -> Dropout block per hidden size, then
-a final Linear to logits. BatchNorm uses eps 1e-5 and momentum 0.1 (flax's
-0.9). flax's ``nn.gelu`` is the tanh approximation by default, so
-``"gelu"`` maps to ``nn.GELU(approximate="tanh")``, not to PyTorch's exact
-default. An unknown activation name falls back to ReLU, as in flax.
+Linear -> BatchNorm -> activation -> Dropout block per hidden size, then a
+final Linear to logits. flax's ``nn.gelu`` is the tanh approximation by
+default, so ``"gelu"`` maps to ``nn.GELU(approximate="tanh")``, not to
+PyTorch's exact default. An unknown activation name falls back to ReLU, as
+in flax.
+
+Training follows flax (``models/layers.py``): flax's default
+initialization, BatchNorm with flax's batch statistics, momentum 0.9 and
+the biased running variance (eps 1e-5), and dropout drawn from the
+generator the forward is given.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 from torch import nn
+
+from amcpy_tpu_torch.models.layers import FlaxBatchNorm1d, dropout, init_flax_defaults
 
 __all__ = ["AMCClassifier"]
 
@@ -47,14 +55,16 @@ class AMCClassifier(nn.Module):
         self.dense = nn.ModuleList(
             nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:])
         )
-        self.norm = nn.ModuleList(
-            nn.BatchNorm1d(h, eps=1e-5, momentum=0.1) for h in hidden_sizes
-        )
+        self.norm = nn.ModuleList(FlaxBatchNorm1d(h) for h in hidden_sizes)
         self.act = act()
-        self.drop = nn.Dropout(dropout)
+        self.dropout = dropout
         self.out = nn.Linear(widths[-1], n_classes)
+        init_flax_defaults(self)
 
-    def forward(self, x):
+    def forward(
+        self, x: torch.Tensor, *, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        """Logits; in training, dropout draws from ``generator``."""
         for dense, norm in zip(self.dense, self.norm):
-            x = self.drop(self.act(norm(dense(x))))
+            x = dropout(self.act(norm(dense(x))), self.dropout, self.training, generator)
         return self.out(x)

@@ -24,25 +24,34 @@ Convolutions pad ``"SAME"`` as flax does: ``pad_total = max((ceil(N/s) - 1)
 * s + k - N, 0)`` with ``pad_total // 2`` on the low side, padded
 explicitly because ``nn.Conv1d(padding="same")`` refuses strides.
 
-The ``aug_*`` fields are kept so that checkpoints round-trip. They act only
-in training, which is not ported: a train-mode forward with augmentation
-raises. Parameter names (``conv.k``, ``norm.k``, ``dense``, ``out``) are
-the counterparts of the flax ``Conv_k``/``BatchNorm_k``/``Dense_0``/
-``Dense_1``; :func:`amcpy_tpu_torch.train.checkpoint.cnn_params_from_flax`
-maps one onto the other.
+Training follows flax (``models/layers.py``): flax's default
+initialization; train-mode BatchNorm takes its statistics over (batch,
+time) in float32 from the bf16 conv output, normalizes and rounds to bf16,
+and moves the running statistics as flax does; dropout and the
+augmentation draw from the generator the forward is given. The
+augmentation (``aug_phase``, ``aug_noise_snr_db``, ``aug_noise_prob``) acts
+in training only: :func:`augmentation_draws` makes one batch's draws and
+:func:`augment` applies them, the JAX formula of
+``amcpy_tpu/models/cnn.py:110-134``. Parameter names (``conv.k``,
+``norm.k``, ``dense``, ``out``) are the counterparts of the flax
+``Conv_k``/``BatchNorm_k``/``Dense_0``/``Dense_1``;
+:func:`amcpy_tpu_torch.train.checkpoint.cnn_params_from_flax` maps one onto
+the other.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from amcpy_tpu_torch.models.layers import FlaxBatchNorm1d, dropout, init_flax_defaults
 from amcpy_tpu_torch.utils.device import no_tf32
 
-__all__ = ["IQConvNet", "same_padding"]
+__all__ = ["IQConvNet", "augment", "augmentation_draws", "same_padding"]
 
 #: the compute dtypes of the JAX package's checkpoints (``jnp.dtype`` names)
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -53,6 +62,55 @@ def same_padding(n: int, k: int, s: int) -> tuple[int, int]:
     ``k`` and stride ``s``."""
     total = max((-(-n // s) - 1) * s + k - n, 0)
     return total // 2, total - total // 2
+
+
+def augmentation_draws(
+    b: int,
+    n: int,
+    *,
+    phase: bool,
+    noise_snr_db: "tuple[float, float] | None",
+    noise_prob: float,
+    generator: torch.Generator | None = None,
+    device: "torch.device | None" = None,
+) -> tuple:
+    """One batch's augmentation draws from ``generator``, as
+    ``(theta, snr_db, keep, noise)`` for :func:`augment`: ``theta`` (B, 1)
+    ~ U(0, 2 pi) when ``phase``; with ``noise_snr_db = (lo, hi)``, ``snr_db``
+    (B, 1, 1) ~ U(lo, hi), ``keep`` (B, 1, 1) True with probability
+    ``noise_prob`` and ``noise`` (B, 2, N) standard normal. What is not
+    drawn is None."""
+    theta = snr_db = keep = noise = None
+    if phase:
+        theta = torch.rand((b, 1), generator=generator, device=device) * (2 * math.pi)
+    if noise_snr_db is not None:
+        lo, hi = noise_snr_db
+        snr_db = lo + (hi - lo) * torch.rand((b, 1, 1), generator=generator, device=device)
+        keep = torch.rand((b, 1, 1), generator=generator, device=device) < noise_prob
+        noise = torch.randn((b, 2, n), generator=generator, device=device)
+    return theta, snr_db, keep, noise
+
+
+def augment(
+    x: torch.Tensor,
+    theta: "torch.Tensor | None",
+    snr_db: "torch.Tensor | None",
+    keep: "torch.Tensor | None",
+    noise: "torch.Tensor | None",
+) -> torch.Tensor:
+    """Planar float32 frames ``(B, 2, N)`` rotated by the phase ``theta``
+    and, where ``keep``, given AWGN ``noise`` at the added-noise SNR
+    ``snr_db``: per-component variance ``mean(x^2) * 10^(-snr_db / 10)``,
+    the mean over both planes of the rotated frame."""
+    if theta is not None:
+        c, s = torch.cos(theta), torch.sin(theta)
+        i, q = x[:, 0, :], x[:, 1, :]
+        x = torch.stack([i * c - q * s, i * s + q * c], dim=1)
+    if snr_db is not None:
+        p_sig = x.square().mean(dim=(-2, -1), keepdim=True)
+        v = p_sig * torch.pow(10.0, -snr_db / 10.0)
+        x = x + torch.where(keep, torch.sqrt(v), 0.0) * noise
+    return x
 
 
 class IQConvNet(nn.Module):
@@ -94,12 +152,10 @@ class IQConvNet(nn.Module):
             for a, b, k, s in zip(widths[:-1], widths[1:], self.kernel_sizes,
                                   self.strides)
         )
-        self.norm = nn.ModuleList(
-            nn.BatchNorm1d(c, eps=1e-5, momentum=0.1) for c in self.channels
-        )
+        self.norm = nn.ModuleList(FlaxBatchNorm1d(c) for c in self.channels)
         self.dense = nn.Linear(2 * self.channels[-1], self.dense_width)
-        self.drop = nn.Dropout(dropout)
         self.out = nn.Linear(self.dense_width, n_classes)
+        init_flax_defaults(self)
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -116,15 +172,21 @@ class IQConvNet(nn.Module):
             "dtype": self.dtype,
         }
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and (self.aug_phase or self.aug_noise_snr_db is not None):
-            raise NotImplementedError(
-                "CNN training augmentation is not ported yet (ROADMAP Queue A, "
-                "item 15)"
-            )
+    def forward(
+        self, x: torch.Tensor, *, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        """Logits; in training, the augmentation and dropout draw from
+        ``generator``."""
         with no_tf32():
             dt = self.compute_dtype
             x = x.float()
+            if self.training and (self.aug_phase or self.aug_noise_snr_db is not None):
+                x = augment(x, *augmentation_draws(
+                    x.shape[0], x.shape[-1], phase=self.aug_phase,
+                    noise_snr_db=self.aug_noise_snr_db,
+                    noise_prob=self.aug_noise_prob, generator=generator,
+                    device=x.device,
+                ))
             n2 = x.shape[-2] * x.shape[-1]
             rms = torch.sqrt(x.square().sum(dim=(-2, -1), keepdim=True) / n2 + 1e-12)
             x = (x / rms).to(dt)
@@ -144,5 +206,5 @@ class IQConvNet(nn.Module):
                 [(x.float().sum(-1) / x.shape[-1]).to(dt), x.amax(-1)], dim=-1
             )
             h = pooled @ self.dense.weight.to(dt).T + self.dense.bias.to(dt)
-            h = self.drop(torch.relu(h))
+            h = dropout(torch.relu(h), self.dropout, self.training, generator)
             return self.out(h.float())

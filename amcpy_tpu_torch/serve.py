@@ -105,7 +105,7 @@ class AMCPipeline:
             resolve_model_id,
         )
 
-        model, scaler, _ = load_checkpoint(cfg, resolve_model_id(cfg, model_id))
+        model, _, scaler, _ = load_checkpoint(cfg, resolve_model_id(cfg, model_id))
         return cls(model, scaler, cfg, device=device)
 
     # ------------------------------------------------------------------

@@ -1,1 +1,1 @@
-"""Checkpoints (the training loop waits for a later slice)."""
+"""Training, checkpoints and evaluation."""

@@ -1,18 +1,23 @@
-"""Model checkpoints for inference, and the weight carry-across from flax.
+"""Checkpoints, resume, and the carry-across from the JAX package.
 
-Counterpart of the inference part of ``amcpy_tpu/train/checkpoint.py``. A
-checkpoint is ``ann/model-{id}.pt`` (the model's ``state_dict``, read back
-with ``weights_only=True``) plus ``ann/model-{id}.json``, a sidecar with
-the same keys as the JAX package's: scaler, used columns, training
-hyperparameters, split provenance and model family. ``model.family`` is
+Counterpart of ``amcpy_tpu/train/checkpoint.py``. A checkpoint is
+``ann/model-{id}.pt`` plus ``ann/model-{id}.json``, a sidecar with the same
+keys as the JAX package's: scaler, used columns, training hyperparameters,
+split provenance, history, epoch and model family. ``model.family`` is
 ``"mlp"`` (the feature MLP) or ``"cnn"`` (the raw-IQ :class:`IQConvNet`,
-rebuilt from ``model.arch``).
+rebuilt from ``model.arch``). The ``.pt`` file (read back with
+``weights_only=True``) holds ``{"model": state_dict, "optimizer":
+optimizer state_dict or None, "step": int}``, a complete snapshot to
+resume from; a file holding a bare model ``state_dict`` (the port's first
+format) still loads, with no optimizer state. Both files are written
+atomically.
 
 :func:`params_from_flax` and :func:`cnn_params_from_flax` map the JAX
 package's flax parameter and batch-statistics pytrees (as NumPy arrays)
-onto :class:`AMCClassifier` and :class:`IQConvNet`, so one set of weights
-runs in both packages. Optimizer state, training resume and the
-flax-msgpack reader wait for later slices.
+onto :class:`AMCClassifier` and :class:`IQConvNet`, and
+:func:`opt_state_from_optax` its optax RMSprop/Adam/NAdam states onto the
+port's optimizers, so a run of either package goes on in the other. The
+flax-msgpack file reader waits for a later slice.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from amcpy_tpu_torch.config import Config
 from amcpy_tpu_torch.models.classifier import AMCClassifier
 from amcpy_tpu_torch.models.cnn import IQConvNet
 from amcpy_tpu_torch.preprocessing import Standardizer
+from amcpy_tpu_torch.train.training import TrainState, _optimizer
 
 __all__ = [
     "save_checkpoint",
@@ -39,6 +45,7 @@ __all__ = [
     "resolve_model_id",
     "params_from_flax",
     "cnn_params_from_flax",
+    "opt_state_from_optax",
 ]
 
 
@@ -62,9 +69,12 @@ def save_checkpoint(
     history: dict[str, list[float]] | None = None,
     epoch: int | None = None,
     model_meta: dict[str, Any] | None = None,
+    state: TrainState | None = None,
 ) -> Path:
     """Write ``model-{id}.pt`` and its JSON sidecar; return the ``.pt`` path.
 
+    ``state`` (from :func:`~amcpy_tpu_torch.train.training.train`) adds the
+    optimizer's state and the step counter, so that the run can resume.
     ``model_meta`` defaults to ``{"family": "mlp"}`` for the MLP and, for an
     :class:`IQConvNet`, to ``{"family": "cnn", "input_shape": [2, N],
     "arch": {...}}`` with the keys the JAX CLI writes.
@@ -79,7 +89,13 @@ def save_checkpoint(
     path = cfg.paths.trained_ann / f"model-{model_id}.pt"
     buf = io.BytesIO()
     torch.save(
-        OrderedDict((k, v.detach().cpu()) for k, v in model.state_dict().items()),
+        {
+            "model": OrderedDict(
+                (k, v.detach().cpu()) for k, v in model.state_dict().items()
+            ),
+            "optimizer": None if state is None else state.opt_state,
+            "step": 0 if state is None else int(state.step),
+        },
         buf,
     )
     meta = {
@@ -121,8 +137,10 @@ def save_checkpoint(
 
 def load_checkpoint(
     cfg: Config, model_id: str
-) -> tuple["AMCClassifier | IQConvNet", Standardizer, dict[str, Any]]:
-    """Rebuild the model (on the CPU, in eval mode), its scaler and the
+) -> tuple["AMCClassifier | IQConvNet", TrainState, Standardizer, dict[str, Any]]:
+    """Rebuild ``(model, state, scaler, meta)``: the model (on the CPU, in
+    eval mode), its training state (the optimizer's ``state_dict``, None
+    when the file has none, and the step counter), the scaler and the
     sidecar metadata. The sidecar's ``model.family`` selects the model; an
     unknown family raises ``NotImplementedError``."""
     meta = json.loads(
@@ -149,13 +167,16 @@ def load_checkpoint(
         )
     else:
         raise NotImplementedError(f"unknown model family {family!r}")
-    state = torch.load(
+    blob = torch.load(
         cfg.paths.trained_ann / f"model-{model_id}.pt",
         map_location="cpu", weights_only=True,
     )
-    model.load_state_dict(state)
+    if not isinstance(blob.get("model"), dict):  # a bare state_dict
+        blob = {"model": blob, "optimizer": None, "step": 0}
+    model.load_state_dict(blob["model"])
     model.eval()
-    return model, Standardizer.from_dict(meta["scaler"]), meta
+    state = TrainState(blob["optimizer"], int(blob["step"]))
+    return model, state, Standardizer.from_dict(meta["scaler"]), meta
 
 
 def resolve_model_id(cfg: Config, model_id: str | None = None) -> str:
@@ -181,19 +202,22 @@ def _arr(x) -> torch.Tensor:
 def _norm_state(state, params, batch_stats, count: int) -> None:
     """``norm.k.*`` of ``state`` from flax's ``BatchNorm_k`` (k < count):
     ``scale``/``bias`` -> ``weight``/``bias``, batch stats ``mean``/``var``
-    -> ``running_mean``/``running_var``."""
+    -> ``running_mean``/``running_var`` (left out when ``batch_stats`` is
+    None)."""
     for k in range(count):
-        bn, st = params[f"BatchNorm_{k}"], batch_stats[f"BatchNorm_{k}"]
+        bn = params[f"BatchNorm_{k}"]
         state[f"norm.{k}.weight"] = _arr(bn["scale"])
         state[f"norm.{k}.bias"] = _arr(bn["bias"])
-        state[f"norm.{k}.running_mean"] = _arr(st["mean"])
-        state[f"norm.{k}.running_var"] = _arr(st["var"])
-        state[f"norm.{k}.num_batches_tracked"] = torch.tensor(0)
+        if batch_stats is not None:
+            st = batch_stats[f"BatchNorm_{k}"]
+            state[f"norm.{k}.running_mean"] = _arr(st["mean"])
+            state[f"norm.{k}.running_var"] = _arr(st["var"])
+            state[f"norm.{k}.num_batches_tracked"] = torch.tensor(0)
 
 
 def params_from_flax(
     params: Mapping[str, Mapping[str, Any]],
-    batch_stats: Mapping[str, Mapping[str, Any]],
+    batch_stats: Mapping[str, Mapping[str, Any]] | None,
 ) -> "OrderedDict[str, torch.Tensor]":
     """``state_dict`` of :class:`AMCClassifier` from the flax pytrees.
 
@@ -217,7 +241,7 @@ def params_from_flax(
 
 def cnn_params_from_flax(
     params: Mapping[str, Mapping[str, Any]],
-    batch_stats: Mapping[str, Mapping[str, Any]],
+    batch_stats: Mapping[str, Mapping[str, Any]] | None,
 ) -> "OrderedDict[str, torch.Tensor]":
     """``state_dict`` of :class:`IQConvNet` from the flax pytrees.
 
@@ -237,3 +261,48 @@ def cnn_params_from_flax(
         state[f"{name}.weight"] = _arr(params[layer]["kernel"]).T.contiguous()
         state[f"{name}.bias"] = _arr(params[layer]["bias"])
     return state
+
+
+def opt_state_from_optax(
+    name: str,
+    opt_state: Any,
+    model: "AMCClassifier | IQConvNet",
+    step: int = 0,
+) -> dict[str, Any]:
+    """The port's optimizer ``state_dict`` for ``model`` from the JAX
+    package's optax state of optimizer ``name`` (its pytree with NumPy
+    leaves, as ``jax.tree.map(np.asarray, state.opt_state)`` gives it).
+
+    * ``rmsprop``: ``ScaleByRmsState.nu`` -> ``square_avg``; optax keeps no
+      step count (RMSprop's update does not use it), so ``step`` is given;
+    * ``adam``, ``nadam``: ``ScaleByAdamState`` ``mu``/``nu``/``count`` ->
+      ``exp_avg``/``exp_avg_sq``/``step``.
+
+    The moments are laid out as the parameters are
+    (:func:`params_from_flax`, :func:`cnn_params_from_flax`). The state's
+    ``param_groups`` hold the optimizer's defaults;
+    :func:`~amcpy_tpu_torch.train.training.make_optimizer` sets the
+    learning rate from the config when it loads the state.
+    """
+    inner = next(s for s in opt_state if hasattr(s, "nu"))
+    to_state = cnn_params_from_flax if isinstance(model, IQConvNet) else params_from_flax
+    names = [n for n, _ in model.named_parameters()]
+
+    def per_param(tree) -> list[torch.Tensor]:
+        flat = to_state(tree, None)
+        return [flat[n] for n in names]
+
+    if name == "rmsprop":
+        moments = {"square_avg": per_param(inner.nu)}
+        count = float(step)
+    elif name in ("adam", "nadam"):
+        moments = {"exp_avg": per_param(inner.mu), "exp_avg_sq": per_param(inner.nu)}
+        count = float(np.asarray(inner.count))
+    else:
+        raise ValueError(f"unknown optimizer {name!r}")
+    state = {
+        i: {"step": torch.tensor(count), **{k: v[i] for k, v in moments.items()}}
+        for i in range(len(names))
+    }
+    groups = _optimizer(name, 1e-3, model.parameters()).state_dict()["param_groups"]
+    return {"state": state, "param_groups": groups}

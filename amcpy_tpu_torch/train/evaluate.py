@@ -15,6 +15,9 @@ there is none; pass ``device="cpu"`` for the CPU.
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
+
 import numpy as np
 import scipy.io
 import torch
@@ -28,6 +31,7 @@ __all__ = [
     "evaluate_by_snr",
     "evaluate_by_snr_raw",
     "confusion_counts",
+    "save_confusion_matrix",
     "save_figure_data",
 ]
 
@@ -142,3 +146,18 @@ def save_figure_data(cfg: Config, model_id: str, acc: np.ndarray) -> None:
     scipy.io.savemat(
         str(cfg.paths.figures / f"{model_id}_figure_data.mat"), {"acc": acc}
     )
+
+
+def save_confusion_matrix(
+    cfg: Config, model_id: str, cm: np.ndarray, tag: str = "cm"
+) -> Path:
+    """``figures/{tag}-{model_id}.json``: the confusion matrix (true x
+    predicted) with its class names, the numbers the JAX package draws as
+    ``figures/{tag}-{model_id}.png``."""
+    cfg.paths.ensure_dirs()
+    path = cfg.paths.figures / f"{tag}-{model_id}.json"
+    path.write_text(json.dumps({
+        "classes": list(cfg.signals.modulations_with_noise),
+        "cm": np.asarray(cm).tolist(),
+    }))
+    return path

@@ -51,18 +51,44 @@ Phases, each printing one JSON line:
 7. evaluation — ``evaluate_by_snr`` of phase 5's MLP on phase 4's
    artifacts and ``evaluate_by_snr_raw`` of phase 6's CNN on the dataset
    (module forwards, as in the JAX package), each a finite (6, 16)
-   accuracy matrix in [0, 1], with its seconds.
+   accuracy matrix in [0, 1], with its seconds;
+8. training_mlp — the default MLP (26, 29, 30), RMSprop at lr 1.418e-3,
+   batch 128, 21 epochs on phase 4's artifacts through ``preprocess``
+   (28,800 training rows, 225 steps an epoch): first and median epoch
+   seconds, steps/s, the synchronizing host reads of one epoch (must be 1,
+   the epoch's metrics), the last history entry (val_accuracy >= 0.5); one
+   step on the card against the CPU from the same weights and batch
+   (dropout 0, TF32 off: every tensor the step determines within 1e-5 of
+   its largest value); save -> load -> resume for a 22nd epoch;
+   ``evaluate_by_snr``; ``quantize_model`` and ``emit_c_header``; the int16
+   pipeline's per-SNR accuracy within 0.1 of the float model's;
+9. training_cnn — the default ``IQConvNet`` (bf16, k=1, 32/64/128), Adam at
+   3e-4, batch 128, on ``preprocess_raw`` of phase 4's dataset for 2
+   epochs and 1 more with phase and SNR-mixing augmentation: epoch
+   seconds, ms per step, epochs/s, the history (losses finite and
+   falling, the last val_accuracy >= 0.3); then the trained checkpoint
+   served by ``AMCPipeline`` under ``kernel="auto"`` on 4096 frames (one K3
+   launch, on wgmma) against the module forward (logits within 0.08 + 1 %
+   of the logit, argmax identical where the top-two margin exceeds 0.16)
+   and against the plain trunk plus head (K3's tolerance);
+10. cli — ``python -m amcpy_tpu_torch`` subprocesses on the card (``extract``,
+   ``train --epochs 2``, ``eval``, ``quantize --emit-c``, ``train --model cnn
+   --epochs 1``, ``classify``) on a 50-frame-a-block copy of the dataset,
+   with a config in YAML's JSON form; each must exit 0 and leave its
+   artifacts.
 
-Four paths are driven: extraction and serving with ``kernel="auto"``
-(both through K1), serving with ``kernel="pallas"`` (through K2), and CNN
-serving (through K3). Every launch counter is set to 0 just before each
-path and read just after it; the run fails if a path did not launch its
-kernel. The checked call of each request also records its own launches.
-Then come the ``{"kernels": [...]}`` line (``launches`` summed over the
-paths that run through the kernel, and per path), nvidia-smi's name and
-power limit, and the last line ``{"ok": true, "device": {...}}``. Any
-failure raises and the process exits non-zero; without a CUDA device it
-exits 1 and prints no result.
+Five paths are driven through the kernels: extraction and serving with
+``kernel="auto"`` (both through K1), serving with ``kernel="pallas"``
+(through K2), CNN serving (through K3), and serving of phase 9's trained
+CNN (through K3). Every launch counter is set to 0 just before each path
+and read just after it; the run fails if a path did not launch its kernel.
+The checked call of each request also records its own launches; phases 8
+and 9 record theirs (training runs no kernel of the port). Then come the
+``{"kernels": [...]}`` line (``launches`` summed over the paths that run
+through the kernel, and per path), nvidia-smi's name and power limit, and
+the last line ``{"ok": true, "device": {...}}``. Any failure raises and
+the process exits non-zero; without a CUDA device it exits 1 and prints no
+result.
 
 ``bound_ms`` counts what each kernel's function needs, whatever the
 design (``k1_work``, ``k2_work``, ``k3_work``), FP32 work in lane
@@ -73,6 +99,7 @@ ran at the timed shape (``path``) and that kernel's registers and spills.
 
 from __future__ import annotations
 
+import copy
 import json
 import re
 import shutil
@@ -80,6 +107,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -512,6 +541,313 @@ def make_dataset(cfg, seed: int) -> dict[str, np.ndarray]:
     return out
 
 
+#: the MLP's card step against the CPU's: every tensor the step determines
+#: within this fraction of its largest value (float32, TF32 off)
+STEP_REL = 1e-5
+#: gradients below this leave RMSprop's first update to roundoff (step_gap)
+GRAD_FLOOR = 1e-6
+#: the trained CNN through K3 against its module forward: phase 6's 0.08
+#: plus 1 % of the logit. The module forward rounds the normalized frame to
+#: bf16 before layer 0 and K3 keeps it in float32 (as the JAX kernel does);
+#: that difference scales with the logits, which training makes larger
+#: than phase 6's random weights give (the margin rule and K3's own
+#: tolerance against its plain version are unchanged)
+TRAINED_ATOL, TRAINED_RTOL = 0.08, 0.01
+#: int16 against float per-SNR accuracy (the JAX package's own budget,
+#: tests/test_quantize.py:299)
+QUANT_BUDGET = 0.1
+
+
+def data_free(key: str) -> bool:
+    """Biases of the layers that feed a BatchNorm, and the running means
+    that absorb them: their gradient is zero in exact arithmetic, so a step
+    moves them by float32 roundoff that an adaptive optimizer scales up
+    (tests/test_torch_training.py)."""
+    return re.fullmatch(r"(dense|conv)\.\d+\.bias", key) is not None or key.endswith(
+        "running_mean")
+
+
+def step_gap(torch, dev, model, cfg, xb, yb) -> dict:
+    """One optimizer step of copies of ``model`` (dropout 0, TF32 off) on
+    the card and on the CPU from the same weights and batch: the losses,
+    and each tensor's largest gap over its largest value for the gradients,
+    the parameters after the step and the batch statistics. The biases that
+    feed a BatchNorm (``data_free``) are reported apart, and so are the
+    weights whose gradient is below ``GRAD_FLOOR``: RMSprop's first step
+    moves a weight by lr g / (0.1 |g| + 1e-8), so below it the float32
+    roundoff of g (the sums' order differs between the devices) sets the
+    update."""
+    from amcpy_tpu_torch.train.training import make_optimizer, train_step
+    from amcpy_tpu_torch.utils.device import no_tf32
+
+    def step(where):
+        m = copy.deepcopy(model).to(where)
+        with no_tf32():
+            loss, _ = train_step(m, make_optimizer(cfg, m.parameters()), xb.to(where),
+                                 yb.to(where))
+        grads = {k: p.grad.cpu().double() for k, p in m.named_parameters()}
+        return float(loss), grads, {k: v.cpu().double() for k, v in m.state_dict().items()}
+
+    (card_loss, card_g, card), (cpu_loss, cpu_g, cpu) = step(dev), step(torch.device("cpu"))
+
+    def rel(a, b, mask=None):
+        """Largest |a - b| (where ``mask``) over the largest |b|."""
+        d = (a - b).abs()
+        d = d if mask is None else d[mask]
+        return float(d.max()) / max(float(b.abs().max()), 1e-30)
+
+    grad_gap = max(rel(card_g[k], g) for k, g in cpu_g.items() if not data_free(k))
+    state_gap, floored = 0.0, 0
+    for k, w in cpu.items():
+        if k.endswith("num_batches_tracked") or data_free(k):
+            continue
+        keep = cpu_g[k].abs() >= GRAD_FLOOR if k in cpu_g else torch.ones_like(w, dtype=bool)
+        floored += int((~keep).sum())
+        if bool(keep.any()):
+            state_gap = max(state_gap, rel(card[k], w, keep))
+    return {"card_loss": card_loss, "cpu_loss": cpu_loss, "grad_max_rel_gap": grad_gap,
+            "state_max_rel_gap": state_gap, "weights_below_grad_floor": floored,
+            "grad_floor": GRAD_FLOOR,
+            "data_free_max_rel_gap": max(rel(card[k], w) for k, w in cpu.items()
+                                         if data_free(k))}
+
+
+def host_syncs(torch, fn) -> list[str]:
+    """Where ``fn`` ran a synchronizing CUDA operation (a read to the host,
+    or a copy from pageable host memory), as ``file:line`` of each, reported
+    by ``torch.cuda.set_sync_debug_mode``."""
+    where: list[str] = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        frames = traceback.extract_stack()[:-1]
+        # switching the mode on warns once by itself (torch 2.11)
+        if "synchroniz" in str(message) and all(
+                f.name != "set_sync_debug_mode" for f in frames):
+            where.append(" < ".join(f"{Path(f.filename).name}:{f.lineno}"
+                                    for f in reversed(frames[-4:])))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return where
+
+
+def epoch_seconds(log_path: Path, start: int) -> list[float]:
+    """``wall_s`` of the ``train_epoch`` records of ``log_path`` from line
+    ``start`` on."""
+    lines = log_path.read_text().splitlines()[start:]
+    return [r["wall_s"] for r in map(json.loads, lines) if r["event"] == "train_epoch"]
+
+
+def phase_training_mlp(torch, dev, cfg, features, work) -> dict:
+    """Phase 8: the default MLP trained for 21 epochs on phase 4's
+    artifacts, resumed for a 22nd, evaluated and quantized."""
+    from amcpy_tpu_torch.models.classifier import AMCClassifier
+    from amcpy_tpu_torch.models.layers import init_flax_defaults
+    from amcpy_tpu_torch.ops.quantize import (
+        emit_c_header,
+        evaluate_quantized_by_snr,
+        quantize_model,
+    )
+    from amcpy_tpu_torch.preprocessing import build_dataset, preprocess
+    from amcpy_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from amcpy_tpu_torch.train.evaluate import evaluate_by_snr
+    from amcpy_tpu_torch.train.training import (
+        HISTORY_KEYS,
+        epoch_order,
+        make_optimizer,
+        run_epoch,
+        train,
+    )
+    from amcpy_tpu_torch.utils.device import no_tf32
+    from amcpy_tpu_torch.utils.metrics import MetricsLogger
+
+    x_tr, x_te, y_tr, y_te, scaler = preprocess(features, cfg)
+    t = cfg.training
+    n_batches = len(x_tr) // t.batch_size
+    log_path = work / "metrics" / "train.jsonl"
+    logger = MetricsLogger(log_path)
+    t0 = time.perf_counter()
+    model, state, history, model_id = train(cfg, x_tr, y_tr, x_te, y_te, device=dev,
+                                            logger=logger)
+    train_s = time.perf_counter() - t0
+    epochs = epoch_seconds(log_path, 0)
+    last = {k: history[k][-1] for k in HISTORY_KEYS}
+    if not all(np.isfinite(history["loss"])) or last["val_accuracy"] < 0.5:
+        raise AssertionError(f"MLP training did not learn: {last}")
+
+    # one more epoch of the same loop body, its synchronizing reads counted
+    probe = copy.deepcopy(model)
+    opt = make_optimizer(cfg, probe.parameters(), state.opt_state)
+    tensors = [torch.as_tensor(np.asarray(a)).to(dev) for a in (x_tr, y_tr, x_te, y_te)]
+    tensors[1], tensors[3] = tensors[1].long(), tensors[3].long()
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def one_epoch():
+        with no_tf32():
+            order = epoch_order(len(x_tr), n_batches * t.batch_size, gen, dev)
+            m = run_epoch(probe, opt, *tensors, order, t.batch_size, gen)
+            torch.stack([m[k] for k in HISTORY_KEYS]).tolist()
+
+    syncs = host_syncs(torch, one_epoch)
+    if len(syncs) != 1:
+        raise AssertionError(f"an epoch waited for the card {len(syncs)} times: {syncs}")
+
+    init = AMCClassifier(6, tuple(t.hidden_sizes), dropout=0.0,
+                         in_features=x_tr.shape[1])
+    init_flax_defaults(init, torch.Generator().manual_seed(0))
+    gap = step_gap(torch, dev, init, cfg, torch.from_numpy(x_tr[:128]),
+                   torch.from_numpy(y_tr[:128].astype(np.int64)))
+    if (max(gap["grad_max_rel_gap"], gap["state_max_rel_gap"]) > STEP_REL
+            or abs(gap["card_loss"] / gap["cpu_loss"] - 1) > STEP_REL):
+        raise AssertionError(f"the card's step is not the CPU's: {gap}")
+
+    # save -> load -> resume for a 22nd epoch, as `train --resume` does
+    t0 = time.perf_counter()
+    save_checkpoint(cfg, model_id, model, scaler, history, t.epochs, state=state)
+    loaded, prev, _, meta = load_checkpoint(cfg, model_id)
+    more = cfg.replace(training={"epochs": t.epochs + 1})
+    resumed, rstate, rhistory, _ = train(
+        more, x_tr, y_tr, x_te, y_te, device=dev,
+        initial=(loaded.state_dict(), prev.opt_state, int(meta["epoch"])),
+    )
+    resume_s = time.perf_counter() - t0
+    rhistory = {k: history[k] + rhistory[k] for k in HISTORY_KEYS}
+    if len(rhistory["loss"]) != t.epochs + 1 or not np.isfinite(rhistory["loss"]).all():
+        raise AssertionError("the resumed run's history is not whole")
+
+    t0 = time.perf_counter()
+    acc_f = evaluate_by_snr(resumed, scaler, features, cfg, device=dev)
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    weights = resumed.state_dict()
+    sample = scaler.transform(build_dataset(features, cfg, "test")[0]).astype(np.float32)
+    _, info = quantize_model(weights, sample, cfg)
+    header = emit_c_header(weights, scaler, cfg, info)
+    quantize_s = time.perf_counter() - t0
+    acc_q = evaluate_quantized_by_snr(weights, scaler, features, cfg, info)
+    delta = np.abs(acc_f - acc_q)
+    if (cfg.paths.arm_data / "w_and_b.mat").stat().st_size == 0 or not header.exists():
+        raise AssertionError("quantization wrote no artifacts")
+    if delta.max() > QUANT_BUDGET:
+        raise AssertionError(f"int16 accuracy off the float's by {delta.max()}")
+    return {"phase": "training_mlp", "rows": [len(x_tr), len(x_te)],
+            "batch_size": t.batch_size, "steps_per_epoch": n_batches,
+            "epochs": t.epochs, "train_s": train_s, "first_epoch_s": epochs[0],
+            "median_epoch_s": float(np.median(epochs)),
+            "steps_per_s": n_batches / float(np.median(epochs)),
+            "host_reads_per_epoch": len(syncs), "host_read_at": syncs, "last": last,
+            "card_step_vs_cpu": gap, "step_tolerance": STEP_REL,
+            "resume_s": resume_s, "resumed_last": {k: rhistory[k][-1] for k in HISTORY_KEYS},
+            "history_len": len(rhistory["loss"]), "evaluate_by_snr_s": eval_s,
+            "float_mean_acc": float(acc_f.mean()), "quantize_s": quantize_s,
+            "q_formats": info, "int16_mean_acc": float(acc_q.mean()),
+            "int16_delta_mean": float(delta.mean()), "int16_delta_max": float(delta.max()),
+            "int16_budget": QUANT_BUDGET}
+
+
+def phase_training_cnn(torch, dev, cfg, data, work) -> tuple[dict, str]:
+    """Phase 9: the default IQConvNet trained for 2 epochs on phase 4's raw
+    frames and 1 more with augmentation; returns the phase's line and the
+    trained model's checkpoint id."""
+    from amcpy_tpu_torch.models.cnn import IQConvNet
+    from amcpy_tpu_torch.preprocessing import Standardizer, preprocess_raw
+    from amcpy_tpu_torch.train.checkpoint import save_checkpoint
+    from amcpy_tpu_torch.train.training import HISTORY_KEYS, make_optimizer, train, train_step
+    from amcpy_tpu_torch.utils.metrics import MetricsLogger
+
+    x_tr, x_te, y_tr, y_te = preprocess_raw(data, cfg)
+    c = cfg.replace(training={"optimizer": "adam", "learning_rate": 3e-4, "epochs": 2})
+    n_batches = len(x_tr) // c.training.batch_size
+    log_path = work / "metrics" / "train_cnn.jsonl"
+    logger = MetricsLogger(log_path)
+    t0 = time.perf_counter()
+    model, state, history, model_id = train(c, x_tr, y_tr, x_te, y_te, model=IQConvNet(6),
+                                            device=dev, logger=logger)
+    plain_s = time.perf_counter() - t0
+    model.aug_phase, model.aug_noise_snr_db = True, (-12.0, 25.0)
+    more = c.replace(training={"epochs": 3})
+    model, state, aug_history, _ = train(
+        more, x_tr, y_tr, x_te, y_te, model=model, device=dev, logger=logger,
+        initial=(model.state_dict(), state.opt_state, 2),
+    )
+    history = {k: history[k] + aug_history[k] for k in HISTORY_KEYS}
+    epochs = epoch_seconds(log_path, 0)
+    losses = np.asarray(history["loss"])
+    if (not np.isfinite(losses).all() or not losses[1] < losses[0]
+            or history["val_accuracy"][-1] < 0.3):
+        raise AssertionError(f"CNN training did not learn: {history}")
+
+    # the steps alone (no evaluation), on a copy: 20 of them after 3
+    probe = copy.deepcopy(model).train()
+    opt = make_optimizer(c, probe.parameters(), state.opt_state)
+    xb = torch.from_numpy(x_tr[:128]).to(dev)
+    yb = torch.from_numpy(y_tr[:128].astype(np.int64)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(3):
+        train_step(probe, opt, xb, yb, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        train_step(probe, opt, xb, yb, gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 20 * 1e3
+
+    identity = Standardizer(np.zeros(1, np.float32), np.ones(1, np.float32))
+    model.aug_phase, model.aug_noise_snr_db = False, None
+    save_checkpoint(c, model_id, model, identity, history, 3, state=state)
+    line = {"phase": "training_cnn", "rows": [len(x_tr), len(x_te)],
+            "steps_per_epoch": n_batches, "epoch_s": epochs,
+            "epochs_per_s": 1.0 / float(np.median(epochs)),
+            "epoch_ms_per_step": [e / n_batches * 1e3 for e in epochs],
+            "step_ms": step_ms, "plain_epochs_s": plain_s, "history": history}
+    return line, model_id
+
+
+def phase_cli(dev, cfg, data, work) -> dict:
+    """Phase 10: ``python -m amcpy_tpu_torch`` subprocesses on the card on
+    a 50-frame-a-block copy of the dataset, each of which must exit 0 and
+    leave its artifacts."""
+    from amcpy_tpu_torch.data import io_mat
+
+    root = work / "cli"
+    small = cfg.replace(paths={"root": str(root)}, signals={"num_frames": 50})
+    io_mat.save_dataset(small, {m: a[:, :50] for m, a in data.items()})
+    config = root / "small.yaml"
+    # YAML's JSON form: the card's machine has no PyYAML
+    config.write_text(json.dumps({"signals": {"num_frames": 50}}))
+    repo = Path(__file__).resolve().parent
+    runs = []
+    for argv in (["extract"], ["train", "--epochs", "2"], ["eval"],
+                 ["quantize", "--emit-c"], ["train", "--model", "cnn", "--epochs", "1"],
+                 ["classify", "BPSK"]):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "amcpy_tpu_torch", "--root", str(root), "--config",
+             str(config), "--device", str(dev), *argv],
+            cwd=repo, capture_output=True, text=True, timeout=300,
+        )
+        runs.append({"argv": argv, "rc": out.returncode, "s": time.perf_counter() - t0,
+                     "stdout_tail": out.stdout.strip().splitlines()[-1:]})
+        if out.returncode != 0:
+            raise AssertionError(f"{argv} exited {out.returncode}: {out.stderr[-2000:]}")
+    ckpts = sorted((root / "ann").glob("model-*.pt"))
+    wanted = [root / "calculated-features" / f"{m}_features.mat"
+              for m in cfg.signals.modulations_with_noise]
+    wanted += [root / "arm-data" / "w_and_b.mat", root / "arm-data" / "amc_weights.h"]
+    wanted += [root / "figures" / f"cm-{p.stem[6:]}.json" for p in ckpts]
+    missing = [str(p) for p in wanted if not p.exists()]
+    if len(ckpts) != 2 or missing:
+        raise AssertionError(f"CLI artifacts missing: {len(ckpts)} checkpoints, {missing}")
+    return {"phase": "cli", "frames_per_block": 50, "runs": runs,
+            "checkpoints": len(ckpts)}
+
+
 def main() -> int:
     import torch
 
@@ -525,7 +861,7 @@ def main() -> int:
     from amcpy_tpu_torch.models.classifier import AMCClassifier
     from amcpy_tpu_torch.ops import _build
     from amcpy_tpu_torch.ops import features as F
-    from amcpy_tpu_torch.ops.cnn_infer import cnn_head, cnn_trunk
+    from amcpy_tpu_torch.ops.cnn_infer import cnn_head, cnn_trunk, cnn_trunk_plain
     from amcpy_tpu_torch.ops.fused import (
         extract_features_fused,
         extract_features_fused_any,
@@ -574,13 +910,7 @@ def main() -> int:
         cfg = Config().replace(paths={"root": str(work)})
         t0 = time.perf_counter()
         data = make_dataset(cfg, seed=7)
-        cfg.paths.ensure_dirs()
-        import scipy.io
-
-        scipy.io.savemat(
-            str(cfg.paths.mat_data / cfg.paths.mat_filename),
-            {cfg.signals.mat_info[m]: a for m, a in data.items()},
-        )
+        io_mat.save_dataset(cfg, data)
         setup_s = time.perf_counter() - t0
 
         def counts() -> dict[str, int]:
@@ -846,6 +1176,53 @@ def main() -> int:
             if (acc.shape != (6, 16) or not np.isfinite(acc).all()
                     or acc.min() < 0 or acc.max() > 1):
                 raise AssertionError(f"accuracy matrix {acc.shape} out of range")
+
+        # ---- phase 8: MLP training, resume, evaluation, quantization -------
+        zero_counts()
+        line = phase_training_mlp(torch, dev, cfg, results, work)
+        line["launches"] = counts()
+        emit(line)
+
+        # ---- phase 9: CNN training, then the trained CNN served by K3 -------
+        zero_counts()
+        line, cnn_id = phase_training_cnn(torch, dev, cfg, data, work)
+        line["launches"] = counts()
+        emit(line)
+        zero_counts()
+        tpipe = AMCPipeline.from_checkpoint(cfg, cnn_id, device=dev)
+        tmodule = AMCPipeline.from_checkpoint(
+            cfg.replace(compute={"kernel": "xla"}), cnn_id, device=dev
+        )
+        if tpipe._folded is None or tmodule._folded is not None:
+            raise AssertionError("the trained CNN did not route to K3 and the module")
+        xr = flat[order[:4096]]
+        out = tpipe.logits(xr)
+        paths["serving_trained_cnn"] = ("cnn_trunk", counts())
+        ref = tmodule.logits(xr)
+        top2 = ref.topk(2, dim=-1).values
+        differs = (out.argmax(-1) != ref.argmax(-1)) & ((top2[:, 0] - top2[:, 1]) > 0.16)
+        with torch.inference_mode():
+            tfold = tpipe._folded
+            plain_logits = cnn_head(cnn_trunk_plain(*tpipe._to_device(xr), tfold["convs"]),
+                                    tfold["dense"])
+        plain_err, plain_ratio = k3_error(out, plain_logits)
+        served = {"phase": "serving_trained_cnn", "frames": 4096,
+                  "max_abs_logit": float(ref.abs().max()),
+                  "max_logit_diff_vs_module": float((out - ref).abs().max()),
+                  "module_tolerance": f"{TRAINED_ATOL} + {TRAINED_RTOL}*|want|",
+                  "argmax_differs_clear_margin": int(differs.sum()),
+                  "argmax_differs": int((out.argmax(-1) != ref.argmax(-1)).sum()),
+                  "max_logit_diff_vs_plain": plain_err, "plain_err_over_tol": plain_ratio,
+                  "launches": paths["serving_trained_cnn"][1]}
+        emit(served)
+        c = paths["serving_trained_cnn"][1]
+        if (not torch.allclose(out, ref, atol=TRAINED_ATOL, rtol=TRAINED_RTOL)
+                or bool(differs.any()) or plain_ratio > 1.0
+                or c["cnn_trunk_wgmma"] != c["cnn_trunk"] or c["cnn_trunk"] != 1):
+            raise AssertionError(f"the trained CNN's K3 serving disagrees: {served}")
+
+        # ---- phase 10: the command line, in subprocesses on the card -------
+        emit(phase_cli(dev, cfg, data, work))
 
         for path, (key, c) in paths.items():
             if c[key] == 0 or c["reroutes"]:

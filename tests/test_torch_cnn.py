@@ -70,8 +70,9 @@ def _flax_weights(jmodel, n, seed):
     """Seeded numpy values in the flax pytree layout: kernels scaled by
     1/sqrt(fan-in), BatchNorm scale near 1, positive running variances."""
     shapes = jax.tree.map(
-        np.shape,
-        jmodel.init(jax.random.key(0), jnp.zeros((1, 2, n)), train=False),
+        lambda a: a.shape,
+        jax.eval_shape(lambda: jmodel.init(jax.random.key(0), jnp.zeros((1, 2, n)),
+                                           train=False)),
     )
     rng = np.random.default_rng(seed)
 
@@ -358,7 +359,7 @@ def test_checkpoint_round_trip(tmp_path):
             "dtype": jmodel.dtype,
         },
     }
-    loaded, _, _ = load_checkpoint(cfg, "cnn")
+    loaded, _, _, _ = load_checkpoint(cfg, "cnn")
     assert isinstance(loaded, IQConvNet) and loaded.dropout == 0.25
     x = _frames(7, 256, seed=15)
     np.testing.assert_array_equal(_logits(loaded, x), _logits(model, x))
@@ -368,7 +369,7 @@ def test_checkpoint_round_trip(tmp_path):
 
 def test_checkpoint_keeps_augmentation_fields(tmp_path):
     """A sidecar whose ``arch`` carries the ``aug_*`` fields loads, and the
-    fields are kept (they act only in training)."""
+    fields are kept (they act only in training, which now runs them)."""
     cfg = _cfg(tmp_path)
     model = IQConvNet(6, **K1_F32, dtype="float32")
     meta = {"family": "cnn", "input_shape": [2, 256],
@@ -376,13 +377,14 @@ def test_checkpoint_keeps_augmentation_fields(tmp_path):
                      "aug_noise_snr_db": [-12.0, 25.0], "aug_noise_prob": 0.5}}
     save_checkpoint(cfg, "aug", model, Standardizer(np.zeros(1), np.ones(1)),
                     model_meta=meta)
-    loaded, _, _ = load_checkpoint(cfg, "aug")
+    loaded, _, _, _ = load_checkpoint(cfg, "aug")
     assert loaded.aug_phase and loaded.aug_noise_snr_db == (-12.0, 25.0)
     assert loaded.aug_noise_prob == 0.5
     x = torch.from_numpy(_frames(2, 256, seed=16))
     assert loaded.eval()(x).shape == (2, 6)  # eval ignores augmentation
-    with pytest.raises(NotImplementedError, match="item 15"):
-        loaded.train()(x)
+    # training augments, drawing from the generator it is given
+    g = torch.Generator().manual_seed(0)
+    assert torch.isfinite(loaded.train()(x, generator=g)).all()
 
 
 def test_scale_invariance():

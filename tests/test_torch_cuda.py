@@ -18,6 +18,8 @@ bf16 rounding boundary the two round it 2^-8 apart, and the next layer
 carries that on.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -423,3 +425,69 @@ def test_cnn_pipeline_launches_the_trunk_once_per_request(cuda, tmp_path):
         launches = cnn_trunk.launches
         assert other.logits(x).shape == (300, 6)
         assert cnn_trunk.launches == launches
+
+
+def _data_free(key: str) -> bool:
+    """Biases of the layers that feed a BatchNorm, and the running means
+    that absorb them: their gradient is zero in exact arithmetic, so one
+    step moves them by roundoff that an adaptive optimizer scales up."""
+    return re.fullmatch(r"(dense|conv)\.\d+\.bias", key) is not None or key.endswith(
+        "running_mean")
+
+
+def _step_on(device, model, cfg, x, y):
+    """(loss, state_dict on the CPU) after one optimizer step of a copy of
+    ``model`` on ``device``."""
+    import copy
+
+    from amcpy_tpu_torch.train.training import make_optimizer, train_step
+    from amcpy_tpu_torch.utils.device import no_tf32
+
+    model = copy.deepcopy(model).to(device)
+    with no_tf32():
+        loss, _ = train_step(model, make_optimizer(cfg, model.parameters()),
+                             x.to(device), y.to(device))
+    return float(loss), {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def _assert_steps_agree(got, want, loss_rtol, rel):
+    """Losses within ``loss_rtol``; every tensor a step determines within
+    ``rel`` of its largest value."""
+    np.testing.assert_allclose(got[0], want[0], rtol=loss_rtol)
+    for key, w in want[1].items():
+        if _data_free(key) or key.endswith("num_batches_tracked"):
+            continue
+        err = float((got[1][key].double() - w.double()).abs().max())
+        assert err <= rel * float(w.double().abs().max()), (key, err)
+
+
+def test_mlp_train_step_on_card_matches_cpu(cuda):
+    """One RMSprop step of the default MLP (dropout 0, TF32 off) on the
+    card from the CPU's weights and batch: the CPU's parameters and batch
+    statistics within 1e-5 of each tensor's largest value."""
+    from amcpy_tpu_torch.models.classifier import AMCClassifier
+
+    torch.manual_seed(1)
+    model = AMCClassifier(6, dropout=0.0)
+    x = torch.randn(128, 6) * 1.5
+    y = torch.randint(0, 6, (128,))
+    cfg = Config()
+    _assert_steps_agree(_step_on(cuda, model, cfg, x, y),
+                        _step_on(torch.device("cpu"), model, cfg, x, y), 1e-5, 1e-5)
+
+
+def test_bf16_cnn_train_step_on_card_matches_cpu(cuda):
+    """One Adam step of the default bf16 IQConvNet (dropout 0) on 32 frames
+    of 2048 samples, card against CPU: loss rtol 5e-3, every tensor the
+    step determines within 1e-2 of its largest value (bf16 activations and
+    their gradients rounded from float32 values whose last bits differ, as
+    in ``tests/test_torch_cnn_train.py``)."""
+    from amcpy_tpu_torch.models.cnn import IQConvNet
+
+    torch.manual_seed(2)
+    model = IQConvNet(6, dropout=0.0)
+    x = torch.from_numpy(F.to_planar(_frames(32, 2048, seed=7, spread=1.0)))
+    y = torch.randint(0, 6, (32,))
+    cfg = Config().replace(training={"optimizer": "adam", "learning_rate": 3e-4})
+    _assert_steps_agree(_step_on(cuda, model, cfg, x, y),
+                        _step_on(torch.device("cpu"), model, cfg, x, y), 5e-3, 1e-2)

@@ -33,6 +33,8 @@ def test_every_module_imports_without_jax():
     assert "amcpy_tpu_torch.ops.fused" in mods and "amcpy_tpu_torch.serve" in mods
     assert "amcpy_tpu_torch.ops.cnn_infer" in mods
     assert "amcpy_tpu_torch.train.evaluate" in mods
+    for new in ("train.training", "ops.quantize", "models.layers", "cli", "__main__"):
+        assert f"amcpy_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -79,6 +81,8 @@ def _entry_points(tmp_path):
         evaluate_by_snr,
         evaluate_by_snr_raw,
     )
+    from amcpy_tpu_torch.cli import main
+    from amcpy_tpu_torch.train.training import accuracy, train
     from amcpy_tpu_torch.utils.device import resolve_device
 
     cfg = Config().replace(paths={"root": str(tmp_path)})
@@ -107,6 +111,11 @@ def _entry_points(tmp_path):
         "confusion_counts": lambda: confusion_counts(
             cnn, np.ones((2, 2, 256), np.float32), np.zeros(2, int), 6
         ),
+        "train": lambda: train(cfg, np.ones((4, 6)), np.zeros(4), np.ones((2, 6)),
+                               np.zeros(2)),
+        "accuracy": lambda: accuracy(model, np.ones((2, 6)), np.zeros(2)),
+        "cli classify": lambda: main(["--root", str(tmp_path), "classify", "BPSK",
+                                      "--model-id", "m"]),
     }
 
 

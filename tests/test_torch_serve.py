@@ -172,7 +172,7 @@ def test_checkpoint_round_trip(tmp_path):
     assert path.name == "model-rt.pt"
     assert (cfg.paths.trained_ann / "model-rt.json").exists()
 
-    model, scaler, meta = load_checkpoint(cfg, "rt")
+    model, _, scaler, meta = load_checkpoint(cfg, "rt")
     for key, value in pipe.model.state_dict().items():
         torch.testing.assert_close(model.state_dict()[key], value, rtol=0, atol=0)
     np.testing.assert_array_equal(scaler.mean, pipe.scaler.mean)
