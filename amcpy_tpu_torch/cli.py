@@ -2,15 +2,17 @@
 
 Counterpart of ``amcpy_tpu/cli.py`` for the subcommands ``info``,
 ``extract``, ``train`` (``--model mlp|cnn``, ``--resume``), ``eval``,
-``quantize`` and ``classify``, with the same flags; every flag reaches the
-frozen config through ``Config.replace`` before any work starts. The
-global ``--device`` (default ``cuda``) is the counterpart of
+``quantize``, ``classify`` and ``serve``, with the same flags; every flag
+reaches the frozen config through ``Config.replace`` before any work
+starts. The global ``--device`` (default ``cuda``) is the counterpart of
 ``JAX_PLATFORMS``: every command runs on that device, and ``cuda`` without
 a card raises. Where the JAX commands draw figures, these write the
 numbers: ``figures/{id}_figure_data.mat`` (the per-SNR accuracy matrix)
 and ``figures/cm-{id}.json`` (the confusion matrix), and print them.
-``generate``, ``plot``, ``serve``, ``sweep``, ``parity`` and ``full`` are
-not ported yet (ROADMAP).
+A model id names the port's ``ann/model-{id}.pt`` or, where there is none,
+the JAX package's ``ann/model-{id}.msgpack``; without an id the newest of
+either is taken. ``generate``, ``plot``, ``sweep``, ``parity`` and ``full``
+are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -108,6 +110,15 @@ def build_parser() -> argparse.ArgumentParser:
     cls_p.add_argument("--model-id", default=None)
     cls_p.add_argument("--frame-size", type=int, default=None)
     cls_p.add_argument("--out", default=None, help="write predictions to .mat/.npy")
+
+    srv_p = sub.add_parser("serve", help="HTTP classification server over a trained model")
+    srv_p.add_argument("--model-id", default=None)
+    srv_p.add_argument(
+        "--host", default="127.0.0.1",
+        help="bind address; the server has no auth layer, so exposing it "
+             "beyond loopback is an explicit --host 0.0.0.0 opt-in",
+    )
+    srv_p.add_argument("--port", type=int, default=8000)
     return parser
 
 
@@ -501,6 +512,12 @@ def cmd_classify(cfg: Config, args: argparse.Namespace) -> None:
         print(f"Predictions -> {args.out}")
 
 
+def cmd_serve(cfg: Config, args: argparse.Namespace) -> None:
+    from amcpy_tpu_torch.server import serve_forever
+
+    serve_forever(cfg, args.model_id, host=args.host, port=args.port, device=args.device)
+
+
 COMMANDS = {
     "info": cmd_info,
     "extract": cmd_extract,
@@ -508,6 +525,7 @@ COMMANDS = {
     "eval": cmd_eval,
     "quantize": cmd_quantize,
     "classify": cmd_classify,
+    "serve": cmd_serve,
 }
 
 

@@ -10,7 +10,8 @@ reason. How the port reads the compute fields:
   plain PyTorch extractor) on the CPU; ``"pallas"`` selects the
   statistics-only CUDA kernel plus a PyTorch gamma_max epilogue.
 * ``wire_format``: ``"auto"`` and ``"f32"`` mean raw float32 planes;
-  the integer codecs are not ported yet and raise.
+  ``"int24"`` and ``"int16"`` are the block-float codecs of ``ops/wire.py``
+  on the fused route (extraction takes both, serving ``int24`` only).
 
 Everything is a frozen dataclass: no global mutable state.
 """

@@ -8,8 +8,14 @@ chunk k is copied and computed. The per-modulation ``.mat`` artifacts keep
 the reference layout, and a re-run skips modulations whose artifact
 exists (``force=True`` overrides) and recomputes a corrupt one.
 
-Not ported here: device meshes, sequence parallelism, multi-host
-partitioning and the integer wire codecs.
+``wire_format`` ``int24`` or ``int16`` (``ops/wire.py``) applies, as in the
+JAX package, only on the fused route (K1) with a factorizable N: the host
+encodes each chunk's planes into block-float integers, they cross through
+the same pinned buffers, and the device decodes them just before K1. Any
+other route uploads float32, and ``timings["wire"]`` says which format ran.
+
+Not ported here: device meshes, sequence parallelism and multi-host
+partitioning.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import torch
 from amcpy_tpu_torch.config import Config
 from amcpy_tpu_torch.data import io_mat
 from amcpy_tpu_torch.ops.features import NUM_FEATURES, extract_features_planar
+from amcpy_tpu_torch.ops.fft import best_factorization
+from amcpy_tpu_torch.ops.wire import decode_planes, encode_planes, resolve_wire_format
 from amcpy_tpu_torch.utils.device import resolve_device
 from amcpy_tpu_torch.utils.metrics import MetricsLogger, stage_timer
 
@@ -32,7 +40,6 @@ __all__ = [
     "prepare_frames",
     "PreparedBatch",
     "resolve_kernel",
-    "resolve_wire_format",
     "run_extraction",
 ]
 
@@ -50,23 +57,30 @@ def resolve_kernel(kernel: str, device: torch.device) -> str:
     return kernel
 
 
-def resolve_wire_format(fmt: str) -> str:
-    """``"auto"`` and ``"f32"`` ship raw float32 planes (the JAX package
-    also resolves ``"auto"`` to f32 off the TPU)."""
-    if fmt in ("auto", "f32"):
+def _settle_wire(kernel: str, wire: str, frame_size: int, device: torch.device) -> str:
+    """The codec this call runs: ``wire`` only where the fused route (K1)
+    takes the frames, which needs a factorizable N; else ``"f32"``."""
+    wire = resolve_wire_format(wire)
+    if (
+        wire == "f32"
+        or resolve_kernel(kernel, device) != "fused"
+        or best_factorization(frame_size) is None
+    ):
         return "f32"
-    if fmt in ("int24", "int16"):
-        raise NotImplementedError(
-            f"wire format {fmt!r} is not ported yet (ROADMAP Queue A, item 16)"
-        )
-    raise ValueError(f"unknown wire format {fmt!r} (use auto|f32)")
+    return wire
 
 
 def _kernel_fn(
-    kernel: str, normalize_scale: bool, gmax_mode: str, device: torch.device
+    kernel: str,
+    normalize_scale: bool,
+    gmax_mode: str,
+    device: torch.device,
+    wire: str = "f32",
 ) -> tuple[Callable[..., torch.Tensor], bool]:
     """The per-chunk extractor for ``kernel`` and whether it takes separate
-    ``(B, N)`` I and Q planes (``wants_planes``) or packed ``(B, 2, N)``."""
+    ``(B, N)`` I and Q planes (``wants_planes``) or packed ``(B, 2, N)``.
+    With a settled ``wire`` codec (:func:`_settle_wire`) the fused route
+    takes the encoded arrays and decodes them on the device first."""
     kernel = resolve_kernel(kernel, device)
     if kernel == "fused":
         from amcpy_tpu_torch.ops.fused import extract_features_fused_any
@@ -76,6 +90,8 @@ def _kernel_fn(
                 i, q, normalize_scale=normalize_scale, gmax_mode=gmax_mode
             )
 
+        if wire != "f32":
+            return (lambda *enc: fused(*decode_planes(*enc, fmt=wire))), True
         return fused, True
     if kernel == "pallas":
         from amcpy_tpu_torch.ops.pallas_features import extract_features_pallas
@@ -104,11 +120,18 @@ def _default_chunk_size(device: torch.device, frame_size: int) -> int:
 
 
 def _prep_chunk(
-    frames_slice: np.ndarray, wants_planes: bool, pin: bool
+    frames_slice: np.ndarray, wants_planes: bool, pin: bool, wire: str = "f32"
 ) -> tuple[torch.Tensor, ...]:
-    """Host phase of one chunk: split into I/Q planes or pack to
-    ``(B, 2, N)``, in page-locked memory when the device is a card (so the
-    copy can run asynchronously). Pure host work, safe on a thread."""
+    """Host phase of one chunk: split into I/Q planes (encoded for the wire
+    when ``wire`` is a codec) or pack to ``(B, 2, N)``, in page-locked
+    memory when the device is a card (so the copy can run asynchronously).
+    Pure host work, safe on a thread."""
+    if wire != "f32":
+        from amcpy_tpu_torch.ops.fused import split_planes
+
+        enc = encode_planes(*split_planes(frames_slice), wire)
+        return tuple(torch.from_numpy(e).pin_memory() if pin else torch.from_numpy(e)
+                     for e in enc)
     b, n = frames_slice.shape
     shape = (b, n) if wants_planes else (b, 2, n)
     count = 2 if wants_planes else 1
@@ -153,13 +176,13 @@ def prepare_frames(
     t0 = time.perf_counter()
     dev = resolve_device(device)
     frames = np.asarray(frames)
-    wire = resolve_wire_format(wire)
+    wire = _settle_wire(kernel, wire, frames.shape[-1], dev)
     if chunk_size is None:
         chunk_size = _default_chunk_size(dev, frames.shape[-1])
     wants_planes = resolve_kernel(kernel, dev) == "fused"
     pin = dev.type == "cuda"
     chunks = [
-        (start, _prep_chunk(frames[start : start + chunk_size], wants_planes, pin))
+        (start, _prep_chunk(frames[start : start + chunk_size], wants_planes, pin, wire))
         for start in range(0, frames.shape[0], chunk_size)
     ]
     return PreparedBatch(
@@ -186,6 +209,10 @@ def extract_batch(
     computed; every chunk's features land in one device buffer, fetched
     once at the end. A :class:`PreparedBatch` skips the host phase.
 
+    ``wire`` — ``int24`` or ``int16`` sends block-float integers that the
+    device decodes before K1, on the fused route with a factorizable N;
+    every other call sends float32 (``auto`` is float32).
+
     ``timings`` — optional dict, filled with the phase split of the host
     path: ``host_prep_s`` (time BLOCKED on prep), ``prep_total_s`` (all
     prep, overlapped or not), ``h2d_s`` (enqueueing the copies and
@@ -207,7 +234,7 @@ def extract_batch(
     else:
         frames = np.asarray(frames)
         b = frames.shape[0]
-        wire = resolve_wire_format(wire)
+        wire = _settle_wire(kernel, wire, frames.shape[-1], dev)
         if chunk_size is None:
             chunk_size = _default_chunk_size(dev, frames.shape[-1])
         wants_planes = resolve_kernel(kernel, dev) == "fused"
@@ -218,7 +245,7 @@ def extract_batch(
         def _prep(start):
             t0 = time.perf_counter()
             payload = _prep_chunk(
-                frames[start : start + chunk_size], wants_planes, pin
+                frames[start : start + chunk_size], wants_planes, pin, wire
             )
             return start, payload, time.perf_counter() - t0
 
@@ -236,7 +263,7 @@ def extract_batch(
                     fut = prep_exec.submit(_prep, starts[k + 1])
                 yield start, payload
 
-    kern, wants_k = _kernel_fn(kernel, normalize_scale, gmax_mode, dev)
+    kern, wants_k = _kernel_fn(kernel, normalize_scale, gmax_mode, dev, wire)
     if wants_k != wants_planes:
         raise ValueError(
             "prepared batch routing does not match this kernel: prepare "

@@ -16,8 +16,14 @@ atomically.
 package's flax parameter and batch-statistics pytrees (as NumPy arrays)
 onto :class:`AMCClassifier` and :class:`IQConvNet`, and
 :func:`opt_state_from_optax` its optax RMSprop/Adam/NAdam states onto the
-port's optimizers, so a run of either package goes on in the other. The
-flax-msgpack file reader waits for a later slice.
+port's optimizers, so a run of either package goes on in the other.
+
+:func:`load_checkpoint` also reads the JAX package's checkpoint,
+``ann/model-{id}.msgpack`` (``{params, batch_stats, opt_state, step}``
+written by flax, decoded in plain Python by
+:mod:`~amcpy_tpu_torch.train.flax_msgpack`) with the same sidecar, when no
+``.pt`` of that id exists: such a model serves, evaluates, quantizes and
+resumes in the port. The port writes ``.pt`` only.
 """
 
 from __future__ import annotations
@@ -142,7 +148,8 @@ def load_checkpoint(
     eval mode), its training state (the optimizer's ``state_dict``, None
     when the file has none, and the step counter), the scaler and the
     sidecar metadata. The sidecar's ``model.family`` selects the model; an
-    unknown family raises ``NotImplementedError``."""
+    unknown family raises ``NotImplementedError``. ``model-{id}.pt`` is
+    read when it exists, else the JAX package's ``model-{id}.msgpack``."""
     meta = json.loads(
         (cfg.paths.trained_ann / f"model-{model_id}.json").read_text()
     )
@@ -167,25 +174,45 @@ def load_checkpoint(
         )
     else:
         raise NotImplementedError(f"unknown model family {family!r}")
-    blob = torch.load(
-        cfg.paths.trained_ann / f"model-{model_id}.pt",
-        map_location="cpu", weights_only=True,
-    )
-    if not isinstance(blob.get("model"), dict):  # a bare state_dict
-        blob = {"model": blob, "optimizer": None, "step": 0}
+    pt = cfg.paths.trained_ann / f"model-{model_id}.pt"
+    if pt.exists():
+        blob = torch.load(pt, map_location="cpu", weights_only=True)
+        if not isinstance(blob.get("model"), dict):  # a bare state_dict
+            blob = {"model": blob, "optimizer": None, "step": 0}
+    else:
+        blob = _read_flax(
+            cfg.paths.trained_ann / f"model-{model_id}.msgpack", model,
+            meta["config"]["training"]["optimizer"],
+        )
     model.load_state_dict(blob["model"])
     model.eval()
     state = TrainState(blob["optimizer"], int(blob["step"]))
     return model, state, Standardizer.from_dict(meta["scaler"]), meta
 
 
+def _read_flax(path: Path, model: "AMCClassifier | IQConvNet", optimizer: str) -> dict:
+    """``{"model", "optimizer", "step"}`` of the JAX package's checkpoint
+    for ``model``, whose optax state is that of ``optimizer``."""
+    from amcpy_tpu_torch.train.flax_msgpack import msgpack_restore
+
+    payload = msgpack_restore(path.read_bytes())
+    to_state = cnn_params_from_flax if isinstance(model, IQConvNet) else params_from_flax
+    step = int(np.asarray(payload["step"]))
+    return {
+        "model": to_state(payload["params"], payload["batch_stats"]),
+        "optimizer": opt_state_from_optax(optimizer, payload["opt_state"], model, step),
+        "step": step,
+    }
+
+
 def resolve_model_id(cfg: Config, model_id: str | None = None) -> str:
-    """Use the given id or fall back to the newest ``.pt`` checkpoint by
-    mtime."""
+    """Use the given id or fall back to the newest checkpoint by mtime, the
+    port's ``.pt`` and the JAX package's ``.msgpack`` alike."""
     if model_id:
         return model_id
     ckpts = sorted(
-        cfg.paths.trained_ann.glob("model-*.pt"),
+        [*cfg.paths.trained_ann.glob("model-*.pt"),
+         *cfg.paths.trained_ann.glob("model-*.msgpack")],
         key=lambda p: p.stat().st_mtime,
     )
     if not ckpts:
@@ -196,6 +223,9 @@ def resolve_model_id(cfg: Config, model_id: str | None = None) -> str:
 
 
 def _arr(x) -> torch.Tensor:
+    """A float32 CPU tensor of a NumPy leaf or a (bfloat16) tensor leaf."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32, copy=True)
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
@@ -270,8 +300,10 @@ def opt_state_from_optax(
     step: int = 0,
 ) -> dict[str, Any]:
     """The port's optimizer ``state_dict`` for ``model`` from the JAX
-    package's optax state of optimizer ``name`` (its pytree with NumPy
-    leaves, as ``jax.tree.map(np.asarray, state.opt_state)`` gives it).
+    package's optax state of optimizer ``name``: its pytree with NumPy
+    leaves, as ``jax.tree.map(np.asarray, state.opt_state)`` gives it, or
+    the state dict a flax msgpack file holds (the chain's states keyed
+    ``"0"``, ``"1"``, …, each a dict of its fields).
 
     * ``rmsprop``: ``ScaleByRmsState.nu`` -> ``square_avg``; optax keeps no
       step count (RMSprop's update does not use it), so ``step`` is given;
@@ -284,7 +316,13 @@ def opt_state_from_optax(
     :func:`~amcpy_tpu_torch.train.training.make_optimizer` sets the
     learning rate from the config when it loads the state.
     """
-    inner = next(s for s in opt_state if hasattr(s, "nu"))
+    if isinstance(opt_state, Mapping):
+        opt_state = [opt_state[k] for k in sorted(opt_state, key=int)]
+    inner = next(
+        s if isinstance(s, Mapping) else s._asdict()
+        for s in opt_state
+        if (isinstance(s, Mapping) and "nu" in s) or hasattr(s, "nu")
+    )
     to_state = cnn_params_from_flax if isinstance(model, IQConvNet) else params_from_flax
     names = [n for n, _ in model.named_parameters()]
 
@@ -293,11 +331,11 @@ def opt_state_from_optax(
         return [flat[n] for n in names]
 
     if name == "rmsprop":
-        moments = {"square_avg": per_param(inner.nu)}
+        moments = {"square_avg": per_param(inner["nu"])}
         count = float(step)
     elif name in ("adam", "nadam"):
-        moments = {"exp_avg": per_param(inner.mu), "exp_avg_sq": per_param(inner.nu)}
-        count = float(np.asarray(inner.count))
+        moments = {"exp_avg": per_param(inner["mu"]), "exp_avg_sq": per_param(inner["nu"])}
+        count = float(np.asarray(inner["count"]))
     else:
         raise ValueError(f"unknown optimizer {name!r}")
     state = {

@@ -75,12 +75,41 @@ Phases, each printing one JSON line:
    ``train --epochs 2``, ``eval``, ``quantize --emit-c``, ``train --model cnn
    --epochs 1``, ``classify``) on a 50-frame-a-block copy of the dataset,
    with a config in YAML's JSON form; each must exit 0 and leave its
-   artifacts.
+   artifacts; then ``serve --port 0`` (the newest checkpoint): its
+   "listening on" line is read, one request is posted (200, one label a
+   frame), and SIGINT stops it (exit 0);
+11. server — ``AMCServer`` on 127.0.0.1, port 0, over three checkpoints:
+   the JAX package's committed ``tests/fixtures/flax_ckpt`` MLP and CNN
+   (``model-jax-*.msgpack``, read without msgpack) and phase 8's trained
+   ``.pt`` MLP. First each fixture's logits on the card against the port's
+   CPU logits of it (MLP: argmax identical, within 1e-3; CNN: within
+   0.08 + 1 % of the logit, argmax identical where the top two are more
+   than 0.16 apart). Then a lone client's complex requests of 1, 100 and
+   4096 frames (100, 100 and 20 of them: p50/p95/p99 ms) and one planar
+   request, every label equal to ``predict`` of the same frames on the
+   server's pipeline; for both fixtures also eight concurrent clients of
+   25 requests of 100 frames (requests/s, dispatches, the most requests
+   coalesced into one), labels identical to each request alone wherever
+   its top two logits are more than 1e-4 apart (the CNN: 0.04 * (1 +
+   |top|)), the logits of a coalesced dispatch within 1e-5 * (1 + |want|)
+   of each request alone (the CNN, whose head rounds to bf16: 2e-2), a
+   ``probs=1`` request, a frame-size mismatch (400) and ``/healthz``
+   (naming the card); the host path's ``to_device`` of a 4096-frame
+   request, complex and planar; ``shutdown()`` while eight clients post
+   (every client returns); a server with a 1 KiB resident budget (a
+   one-frame request gets 503);
+12. wire — ``wire_format: int24``: one 4096-frame request through the MLP
+   fixture's int24 serving program (one K1 launch; logits within 1e-3 of
+   the float32 program, at least 99 % identical argmax) and one 4096-frame
+   extraction chunk through the int24 wire (at most 0.25 of
+   ``1e-4 * term_scales + 1e-5 * |want|`` against the float32 wire).
 
-Five paths are driven through the kernels: extraction and serving with
+Ten paths are driven through the kernels: extraction and serving with
 ``kernel="auto"`` (both through K1), serving with ``kernel="pallas"``
-(through K2), CNN serving (through K3), and serving of phase 9's trained
-CNN (through K3). Every launch counter is set to 0 just before each path
+(through K2), CNN serving (through K3), serving of phase 9's trained
+CNN (through K3), the three servers of phase 11 (the MLPs through K1, the
+CNN through K3), and the int24 serving program and extraction of phase 12
+(through K1). Every launch counter is set to 0 just before each path
 and read just after it; the run fails if a path did not launch its kernel.
 The checked call of each request also records its own launches; phases 8
 and 9 record theirs (training runs no kernel of the port). Then come the
@@ -107,7 +136,10 @@ import subprocess
 import sys
 import tempfile
 import time
+import threading
 import traceback
+import urllib.error
+import urllib.request
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -736,7 +768,7 @@ def phase_training_mlp(torch, dev, cfg, features, work) -> dict:
         raise AssertionError("quantization wrote no artifacts")
     if delta.max() > QUANT_BUDGET:
         raise AssertionError(f"int16 accuracy off the float's by {delta.max()}")
-    return {"phase": "training_mlp", "rows": [len(x_tr), len(x_te)],
+    return {"phase": "training_mlp", "model_id": model_id, "rows": [len(x_tr), len(x_te)],
             "batch_size": t.batch_size, "steps_per_epoch": n_batches,
             "epochs": t.epochs, "train_s": train_s, "first_epoch_s": epochs[0],
             "median_epoch_s": float(np.median(epochs)),
@@ -836,6 +868,7 @@ def phase_cli(dev, cfg, data, work) -> dict:
                      "stdout_tail": out.stdout.strip().splitlines()[-1:]})
         if out.returncode != 0:
             raise AssertionError(f"{argv} exited {out.returncode}: {out.stderr[-2000:]}")
+    runs.append(cli_serve(dev, root, config, repo, data))
     ckpts = sorted((root / "ann").glob("model-*.pt"))
     wanted = [root / "calculated-features" / f"{m}_features.mat"
               for m in cfg.signals.modulations_with_noise]
@@ -846,6 +879,336 @@ def phase_cli(dev, cfg, data, work) -> dict:
         raise AssertionError(f"CLI artifacts missing: {len(ckpts)} checkpoints, {missing}")
     return {"phase": "cli", "frames_per_block": 50, "runs": runs,
             "checkpoints": len(ckpts)}
+
+
+def cli_serve(dev, root: Path, config: Path, repo: Path, data) -> dict:
+    """``serve`` as a subprocess on port 0 (the newest checkpoint): read its
+    "listening on" line, POST one request, stop it with SIGINT; it must
+    answer 200 and exit 0."""
+    import signal
+
+    argv = ["serve", "--port", "0"]
+    frames = next(iter(data.values()))[-1, :10]
+    t0 = time.perf_counter()
+    lines: list[str] = []
+    listening = threading.Event()
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "amcpy_tpu_torch", "--root", str(root), "--config",
+             str(config), "--device", str(dev), *argv],
+            cwd=repo, stdout=subprocess.PIPE, stderr=err, text=True,
+        )
+
+        def read():
+            for text in proc.stdout:
+                lines.append(text.rstrip())
+                if "listening on http://" in text:
+                    listening.set()
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        try:
+            if not listening.wait(timeout=240):
+                raise AssertionError(f"serve did not start: {lines}")
+            url = re.search(r"http://[0-9.]+:[0-9]+",
+                            next(t for t in lines if "listening on" in t))[0]
+            status, reply = http_json(f"{url}/classify", frames.tobytes())
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            reader.join(timeout=10)
+        err.seek(0)
+        stderr = err.read()
+    run = {"argv": argv, "rc": rc, "s": time.perf_counter() - t0, "status": status,
+           "labels": len(reply.get("labels", [])), "stdout_tail": lines[-2:]}
+    if rc != 0 or status != 200 or run["labels"] != len(frames):
+        raise AssertionError(f"serve: {run} {stderr[-2000:]}")
+    return run
+
+
+def http_json(url: str, body: bytes | None = None, timeout: float = 300) -> tuple[int, dict]:
+    """(status, JSON reply) of a GET, or of a POST of ``body``."""
+    req = urllib.request.Request(url, data=body, method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def percentiles(ms: list[float]) -> dict[str, float]:
+    return {f"p{p}": float(np.percentile(ms, p)) for p in (50, 95, 99)} | {
+        "n": len(ms), "max": float(max(ms))}
+
+
+#: a coalesced dispatch's logits against the same request alone, by
+#: family: |got - want| <= tol * (1 + |want|), argmax identical wherever the
+#: top two are more than the margin apart. The MLP is float32 throughout
+#: (1e-5, 1e-4). The CNN's head rounds its input and hidden layer to bf16:
+#: cuBLAS may sum a product of another batch size in another order, and a
+#: hidden value next to a bf16 rounding boundary then lands 2^-8 apart, so
+#: the CNN takes K3's tolerance and twice it as the margin
+COALESCE_BARS = {"mlp": (1e-5, lambda top: 1e-4),
+                 "cnn": (K3_TOL, lambda top: 2 * K3_TOL * (1 + top))}
+#: requests of each size a lone client sends, one after another
+LONE_REQUESTS = ((1, 100), (100, 100), (4096, 20))
+#: concurrent clients, the requests each sends, the frames of each request
+CLIENTS, CLIENT_REQUESTS, CLIENT_FRAMES = 8, 25, 100
+
+
+def serve_traffic(torch, srv, flat, order, full: bool) -> dict:
+    """Drive one running server: a lone client's complex requests of 1, 100
+    and 4096 frames and one planar request, each label equal to
+    ``predict`` of the same frames on the server's pipeline; with ``full``
+    also eight concurrent clients (labels against each request alone, by
+    the margin rule of ``COALESCE_BARS``), a ``probs=1`` request, a
+    frame-size mismatch (400) and ``/healthz``. Returns the latencies and
+    counters."""
+    from amcpy_tpu_torch.ops import features as F
+
+    host, port = srv.address
+    base = f"http://{host}:{port}"
+    pipe = srv.pipe
+    out: dict = {"lone_ms": {}}
+    for size, reps in LONE_REQUESTS:
+        x = flat[order[:size]]
+        want = pipe.predict(x).tolist()
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            status, reply = http_json(f"{base}/classify", x.tobytes())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if status != 200 or reply["class_ids"] != want:
+                raise AssertionError(f"{size}-frame request: {status}, labels differ")
+        out["lone_ms"][size] = percentiles(ms)
+    x = flat[order[:100]]
+    status, reply = http_json(f"{base}/classify?format=planar", F.to_planar(x).tobytes())
+    if status != 200 or reply["class_ids"] != pipe.predict(x).tolist():
+        raise AssertionError(f"planar request: {status}")
+    if not full:
+        return out
+
+    family = "cnn" if pipe.is_cnn else "mlp"
+    tol, margin = COALESCE_BARS[family]
+    bodies = [flat[order[CLIENT_FRAMES * k : CLIENT_FRAMES * (k + 1)]] for k in range(CLIENTS)]
+    alone = [pipe.logits(b) for b in bodies]
+    # a coalesced dispatch is one pipeline call on the concatenated requests
+    together = pipe.logits(np.concatenate(bodies)).split(CLIENT_FRAMES)
+    coalesce_err = max(float(((t - a).abs() / (1 + a.abs())).max())
+                       for t, a in zip(together, alone))
+    if coalesce_err > tol:
+        raise AssertionError(f"{family}: coalesced logits off the lone request's by "
+                             f"{coalesce_err} of 1 + |want| (bar {tol})")
+
+    def clear(logits):
+        top2 = logits.topk(2, dim=-1).values
+        return ((top2[:, 0] - top2[:, 1]) > margin(top2[:, 0].abs())).cpu().numpy()
+
+    before = http_json(f"{base}/healthz")[1]["batcher"]
+    lat: list[float] = []
+    bad: list[int] = []
+
+    def client(k):
+        want, keep = alone[k].argmax(-1).cpu().numpy(), clear(alone[k])
+        for _ in range(CLIENT_REQUESTS):
+            t0 = time.perf_counter()
+            status, reply = http_json(f"{base}/classify", bodies[k].tobytes())
+            lat.append((time.perf_counter() - t0) * 1e3)
+            got = np.asarray(reply.get("class_ids", []))
+            if status != 200 or got.shape != want.shape or (got != want)[keep].any():
+                bad.append(k)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(CLIENTS) as pool:
+        list(pool.map(client, range(CLIENTS)))
+    wall = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"concurrent clients {sorted(set(bad))} got other labels")
+    health = http_json(f"{base}/healthz")[1]
+    b = health["batcher"]
+    out["concurrent"] = {
+        "clients": CLIENTS, "requests": CLIENTS * CLIENT_REQUESTS, "frames": CLIENT_FRAMES,
+        "wall_s": wall, "requests_per_s": CLIENTS * CLIENT_REQUESTS / wall,
+        "ms": percentiles(lat),
+        "dispatches": b["dispatches"] - before["dispatches"],
+        "coalesced_requests": b["coalesced_requests"] - before["coalesced_requests"],
+        "max_coalesced": b["max_coalesced"],
+        "coalesced_vs_alone_max_err": coalesce_err, "coalesced_vs_alone_tol": tol,
+    }
+    x = flat[order[:10]]
+    status, reply = http_json(f"{base}/classify?probs=1", x.tobytes())
+    probs = np.asarray(reply.get("probs", []))
+    want = pipe.predict_proba(x)
+    if status != 200 or probs.shape != want.shape or np.abs(probs - want).max() > 1e-5:
+        raise AssertionError(f"probs=1 request: {status}")
+    status, reply = http_json(f"{base}/classify?frame_size=1024", flat[0, :1024].tobytes())
+    if status != 400 or "allow_any_frame_size" not in reply["error"]:
+        raise AssertionError(f"a frame-size mismatch got {status}")
+    if health["device_name"] != torch.cuda.get_device_name(pipe.device):
+        raise AssertionError(f"/healthz names {health['device_name']}")
+    out["healthz"] = health
+    return out
+
+
+def phase_server(torch, dev, cfg, flat, order, mlp_id, counts, zero_counts, paths) -> dict:
+    """The HTTP server on the card: the JAX package's committed checkpoints
+    of both families (read without msgpack) and phase 8's trained ``.pt``
+    MLP, each behind its own ``AMCServer`` on 127.0.0.1, port 0."""
+    from amcpy_tpu_torch.ops import features as F
+    from amcpy_tpu_torch.serve import AMCPipeline
+    from amcpy_tpu_torch.server import AMCServer
+
+    fixtures = Path(__file__).resolve().parent / "tests" / "fixtures" / "flax_ckpt"
+    for f in fixtures.iterdir():
+        shutil.copy(f, cfg.paths.trained_ann / f.name)
+    if "msgpack" in sys.modules:
+        raise AssertionError("the port imported msgpack")
+    line: dict = {"phase": "server", "fixtures_vs_cpu": {}, "servers": {}}
+    # the fixtures on the card against the port's CPU logits of them
+    for fid, frames in (("jax-mlp", 512), ("jax-cnn", 128)):
+        x = flat[order[:frames]]
+        got = AMCPipeline.from_checkpoint(cfg, fid, device=dev).logits(x).cpu()
+        want = AMCPipeline.from_checkpoint(cfg, fid, device="cpu").logits(x)
+        top2 = want.topk(2, dim=-1).values
+        if fid == "jax-mlp":  # the MLP serving bar: argmax identical, 1e-3
+            ok = torch.allclose(got, want, atol=1e-3, rtol=1e-3) and bool(
+                (got.argmax(-1) == want.argmax(-1)).all())
+        else:  # the CNN's: K3 against the module forward
+            clear = (top2[:, 0] - top2[:, 1]) > 0.16
+            ok = torch.allclose(got, want, atol=TRAINED_ATOL, rtol=TRAINED_RTOL) and not bool(
+                ((got.argmax(-1) != want.argmax(-1)) & clear).any())
+        line["fixtures_vs_cpu"][fid] = {"frames": frames,
+                                        "max_logit_diff": float((got - want).abs().max()),
+                                        "max_abs_logit": float(want.abs().max())}
+        if not ok:
+            raise AssertionError(f"{fid} on the card is not its CPU logits: {line}")
+
+    for mid, kernel, full in (("jax-mlp", "fused", True), ("jax-cnn", "cnn_trunk", True),
+                              (mlp_id, "fused", False)):
+        zero_counts()
+        srv = AMCServer(cfg, mid, port=0, device=dev)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        try:
+            t0 = time.perf_counter()
+            rec = serve_traffic(torch, srv, flat, order, full)
+            rec["traffic_s"] = time.perf_counter() - t0
+            paths[f"server_{mid}"] = (kernel, counts())
+            rec["launches"] = paths[f"server_{mid}"][1]
+            x = flat[order[:4096]]
+            with torch.inference_mode():
+                rec["to_device_4096_ms"] = {
+                    layout: sorted(timed(torch, lambda f=f: srv.pipe._to_device(f))
+                                   for _ in range(11))[5]
+                    for layout, f in (("c64", x), ("planar", F.to_planar(x)))
+                }
+            line["servers"][mid] = rec
+            if mid == "jax-mlp":
+                line["shutdown_in_flight"] = shutdown_in_flight(srv, flat)
+        finally:
+            srv.shutdown()
+
+    small = AMCServer(cfg, "jax-mlp", port=0, device=dev, max_resident_bytes=1024)
+    threading.Thread(target=small.serve_forever, daemon=True).start()
+    try:
+        host, port = small.address
+        # one frame (16 KiB): the server answers 503 without reading the
+        # body, so the body must fit the socket's buffer for the reply to
+        # be read
+        status, reply = http_json(f"http://{host}:{port}/classify", flat[:1].tobytes())
+    finally:
+        small.shutdown()
+    if status != 503 or "overloaded" not in reply["error"]:
+        raise AssertionError(f"a request past the resident budget got {status}")
+    line["small_budget_status"] = status
+    return line
+
+
+def shutdown_in_flight(srv, flat) -> dict:
+    """``shutdown()`` while eight clients post in a loop; every client must
+    return (an answer, an error status or a refused connection)."""
+    host, port = srv.address
+    body = flat[:100].tobytes()
+    answered: list[int] = []
+
+    def client():
+        while True:
+            try:
+                status, _ = http_json(f"http://{host}:{port}/classify", body, timeout=60)
+            except (urllib.error.URLError, OSError):
+                return
+            answered.append(status)
+            if status != 200:
+                return
+
+    threads = [threading.Thread(target=client, daemon=True) for _ in range(CLIENTS)]
+    for t in threads:
+        t.start()
+    time.sleep(1.0)
+    t0 = time.perf_counter()
+    srv.shutdown()
+    for t in threads:
+        t.join(timeout=60)
+    alive = sum(t.is_alive() for t in threads)
+    if alive or not answered:
+        raise AssertionError(f"{alive} clients still waiting after shutdown")
+    return {"clients": CLIENTS, "answers": len(answered),
+            "statuses": sorted(set(answered)), "all_returned_s": time.perf_counter() - t0}
+
+
+def phase_wire(torch, dev, cfg, flat, order, counts, zero_counts, paths) -> dict:
+    """``wire_format: int24`` on the card: one 4096-frame request through
+    the int24 serving program of the JAX MLP fixture against the float32
+    program, and one extraction chunk through the int24 wire against
+    float32."""
+    from amcpy_tpu_torch.extraction import extract_batch
+    from amcpy_tpu_torch.serve import AMCPipeline
+
+    x = flat[order[:4096]]
+    wire = AMCPipeline.from_checkpoint(
+        cfg.replace(compute={"wire_format": "int24"}), "jax-mlp", device=dev)
+    f32 = AMCPipeline.from_checkpoint(cfg, "jax-mlp", device=dev)
+    if wire._wire != "int24" or not wire._wire_eligible(4096, x.shape[-1]):
+        raise AssertionError("the int24 serving program is not taken")
+    zero_counts()
+    got = wire.logits(x)
+    paths["serving_int24"] = ("fused", counts())
+    want = f32.logits(x)
+    same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    logit_err = float((got - want).abs().max())
+    ms = {name: sorted(timed(torch, lambda p=p: p.logits(x)) for _ in range(5))[2]
+          for name, p in (("int24", wire), ("f32", f32))}
+
+    chunk = flat[:4096]
+    zero_counts()
+    tim: dict = {}
+    feats = extract_batch(chunk, kernel="auto", wire="int24", timings=tim, device=dev)
+    paths["extraction_int24"] = ("fused", counts())
+    ref = extract_batch(chunk, kernel="auto", wire="f32", device=dev)
+    tol = 1e-4 * term_scales(chunk) + 1e-5 * np.abs(ref.astype(np.float64))
+    frac = float((np.abs(feats.astype(np.float64) - ref) / tol).max())
+    line = {"phase": "wire", "serving": {"frames": 4096, "max_logit_diff": logit_err,
+                                         "argmax_identical": same, "ms": ms,
+                                         "launches": paths["serving_int24"][1]},
+            "extraction": {"frames": len(chunk), "wire": tim["wire"],
+                           "bytes_h2d": tim["bytes_h2d"], "budget_fraction": frac,
+                           "launches": paths["extraction_int24"][1]}}
+    if logit_err > 1e-3 or same < 0.99 or paths["serving_int24"][1]["fused"] != 1:
+        raise AssertionError(f"int24 serving off the float32 program: {line}")
+    if tim["wire"] != "int24" or frac > 0.25:
+        raise AssertionError(f"int24 extraction ate {frac} of the budget: {line}")
+    return line
+
+
+def timed(torch, fn) -> float:
+    """ms of ``fn()`` between two synchronizations of the card."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
 
 
 def main() -> int:
@@ -1002,25 +1365,18 @@ def main() -> int:
         order = rng.permutation(flat.shape[0])
         atol = rtol = 1e-3
 
-        def timed(fn) -> float:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t) * 1e3
-
         def serve(p, x, name, size, reps):
             """One checked request, then ``reps`` timed ones: the first
             call of a shape pays the allocator's and cuBLAS's set-up. The
             launches of the checked request alone are recorded."""
-            first_ms = timed(lambda: p.logits(x))
+            first_ms = timed(torch, lambda: p.logits(x))
             before = counts()
             out = p.logits(x)
             launched = {k: v - before[k] for k, v in counts().items()}
             ref = plain.logits(x)
             diff = float((out - ref).abs().max())
             mismatch = int((out.argmax(-1) != ref.argmax(-1)).sum())
-            ms = sorted(timed(lambda: p.logits(x)) for _ in range(reps))
+            ms = sorted(timed(torch, lambda: p.logits(x)) for _ in range(reps))
             requests.append({"route": name, "frames": size, "first_ms": first_ms,
                              "ms_median": ms[len(ms) // 2], "ms_max": ms[-1],
                              "reps": reps, "launches": launched,
@@ -1049,7 +1405,7 @@ def main() -> int:
         }
         with torch.inference_mode():
             split_4096 = {
-                k: sorted(timed(fn) for _ in range(11))[5] for k, fn in stages.items()
+                k: sorted(timed(torch, fn) for _ in range(11))[5] for k, fn in stages.items()
             }
 
         capture = work / "capture.bin"
@@ -1091,7 +1447,7 @@ def main() -> int:
             the plain trunk plus head), then ``reps`` timed ones."""
             from amcpy_tpu_torch.ops.cnn_infer import cnn_trunk_plain
 
-            first_ms = timed(lambda: cpipe.logits(xr))
+            first_ms = timed(torch, lambda: cpipe.logits(xr))
             before = counts()
             out = cpipe.logits(xr)
             launched = {k: v - before[k] for k, v in counts().items()}
@@ -1104,7 +1460,7 @@ def main() -> int:
                 plain_logits = cnn_head(cnn_trunk_plain(*planes, folded["convs"]),
                                         folded["dense"])
             plain_err, plain_ratio = k3_error(out, plain_logits)
-            ms = sorted(timed(lambda: cpipe.logits(xr)) for _ in range(reps))
+            ms = sorted(timed(torch, lambda: cpipe.logits(xr)) for _ in range(reps))
             cnn_requests.append({
                 "route": name, "frames": size, "first_ms": first_ms,
                 "ms_median": ms[len(ms) // 2], "ms_max": ms[-1], "reps": reps,
@@ -1142,7 +1498,7 @@ def main() -> int:
         }
         with torch.inference_mode():
             cnn_split = {
-                k: sorted(timed(fn) for _ in range(11))[5] for k, fn in cnn_stages.items()
+                k: sorted(timed(torch, fn) for _ in range(11))[5] for k, fn in cnn_stages.items()
             }
         cnn_preds = cpipe.classify_stream(capture)
         if not np.array_equal(cnn_preds, cpipe.predict(stream_frames)):
@@ -1182,6 +1538,7 @@ def main() -> int:
         line = phase_training_mlp(torch, dev, cfg, results, work)
         line["launches"] = counts()
         emit(line)
+        mlp_id = line["model_id"]
 
         # ---- phase 9: CNN training, then the trained CNN served by K3 -------
         zero_counts()
@@ -1223,6 +1580,12 @@ def main() -> int:
 
         # ---- phase 10: the command line, in subprocesses on the card -------
         emit(phase_cli(dev, cfg, data, work))
+
+        # ---- phase 11: the HTTP server, paths 6-8 ---------------------------
+        emit(phase_server(torch, dev, cfg, flat, order, mlp_id, counts, zero_counts, paths))
+
+        # ---- phase 12: the int24 wire, paths 9-10 ---------------------------
+        emit(phase_wire(torch, dev, cfg, flat, order, counts, zero_counts, paths))
 
         for path, (key, c) in paths.items():
             if c[key] == 0 or c["reroutes"]:

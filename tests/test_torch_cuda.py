@@ -491,3 +491,75 @@ def test_bf16_cnn_train_step_on_card_matches_cpu(cuda):
     cfg = Config().replace(training={"optimizer": "adam", "learning_rate": 3e-4})
     _assert_steps_agree(_step_on(cuda, model, cfg, x, y),
                         _step_on(torch.device("cpu"), model, cfg, x, y), 5e-3, 1e-2)
+
+
+def _mlp_pipeline(cuda, tmp_path, n, **compute):
+    from amcpy_tpu_torch.models.classifier import AMCClassifier
+    from amcpy_tpu_torch.preprocessing import Standardizer
+    from amcpy_tpu_torch.serve import AMCPipeline
+
+    cfg = Config().replace(paths={"root": str(tmp_path)}, signals={"frame_size": n},
+                           compute=compute)
+    feats = F.extract_features(_frames(64, n, seed=12, spread=1.0), device="cpu").numpy()
+    scaler = Standardizer.fit(feats[:, list(cfg.features.used_columns)])
+    torch.manual_seed(3)
+    return AMCPipeline(AMCClassifier(6), scaler, cfg, device=cuda)
+
+
+@pytest.mark.parametrize("kernel", ["auto", "xla"])
+def test_pinned_host_path_gives_the_cpu_planes(cuda, tmp_path, kernel):
+    """The staged copy and the split on the card give the planes (K1, K3)
+    or the packed frames (the other routes) that the CPU path gives, for
+    complex64, complex128, planar and non-contiguous requests."""
+    pipe = _mlp_pipeline(cuda, tmp_path, 256, kernel=kernel)
+    cpu = _mlp_pipeline(torch.device("cpu"), tmp_path, 256, kernel=kernel)
+    cpu._wants_planes = pipe._wants_planes
+    x = _frames(33, 256, seed=13)
+    for frames in (x, x.astype(np.complex128), F.to_planar(x), x[::2],
+                   np.asfortranarray(F.to_planar(x))):
+        got, want = pipe._to_device(frames), cpu._to_device(frames)
+        assert len(got) == len(want) == (2 if kernel == "auto" else 1)
+        for g, w in zip(got, want):
+            assert g.is_cuda and g.is_contiguous() and g.dtype == torch.float32
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    # complex128 crosses as complex64: 8 bytes a sample at most
+    assert pipe._staging.capacity == 1 << (33 * 256 * 8 - 1).bit_length()
+
+
+def test_staging_buffer_reuse_is_safe_across_two_requests_in_flight(cuda):
+    """The second upload waits until the first copy has left the buffer:
+    with the stream held back by a spin kernel, request A's copy is still
+    queued when request B is written, and A arrives intact."""
+    from amcpy_tpu_torch.serve import _Staging
+
+    stage = _Staging(cuda)
+    a = np.arange(1 << 20, dtype=np.float32)
+    b = -np.arange(1 << 20, dtype=np.float32)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of spinning ahead of A's copy
+    (got_a,) = stage.upload([(a, np.float32)])
+    (got_b,) = stage.upload([(b, np.float32)])
+    torch.testing.assert_close(got_a.cpu(), torch.from_numpy(a), rtol=0, atol=0)
+    torch.testing.assert_close(got_b.cpu(), torch.from_numpy(b), rtol=0, atol=0)
+    c = np.ones((3, 5), np.int16)
+    got = stage.upload([(c, np.int16), (a[:7], np.float32), (c.astype(np.uint8), np.uint8)])
+    assert [t.dtype for t in got] == [torch.int16, torch.float32, torch.uint8]
+    assert [tuple(t.shape) for t in got] == [(3, 5), (7,), (3, 5)]
+    torch.testing.assert_close(got[1].cpu(), torch.from_numpy(a[:7]), rtol=0, atol=0)
+
+
+def test_int24_program_launches_k1_once_a_request(cuda, tmp_path):
+    """``wire_format: int24``: a request of 512 frames or more is decoded on
+    the card and runs K1 once; logits within 1e-3 of the float32 program,
+    at least 99 % identical argmax; a smaller request takes float32."""
+    wire = _mlp_pipeline(cuda, tmp_path, 1024, wire_format="int24")
+    f32 = _mlp_pipeline(cuda, tmp_path, 1024)
+    assert wire._wire == "int24" and wire._kernel == "fused"
+    x = _frames(600, 1024, seed=14, spread=1.0)
+    for frames, eligible in ((x, True), (F.to_planar(x), True), (x[:511], False)):
+        assert wire._wire_eligible(len(frames), 1024) == eligible
+        launches = extract_features_fused.launches
+        got = wire.logits(frames)
+        assert extract_features_fused.launches == launches + 1
+        want = f32.logits(frames)
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+        assert (got.argmax(-1) == want.argmax(-1)).float().mean() >= 0.99

@@ -22,10 +22,10 @@ from amcpy_tpu_torch.extraction import (
     extract_batch,
     prepare_frames,
     resolve_kernel,
-    resolve_wire_format,
     run_extraction,
 )
 from amcpy_tpu_torch.ops.features import extract_features_planar, to_planar
+from amcpy_tpu_torch.ops.wire import resolve_wire_format
 
 from .oracle import term_scales
 
@@ -159,14 +159,18 @@ def test_kernel_and_wire_resolution():
         resolve_kernel("mosaic", torch.device("cpu"))
     assert resolve_wire_format("auto") == resolve_wire_format("f32") == "f32"
     for fmt in ("int16", "int24"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            resolve_wire_format(fmt)
+        assert resolve_wire_format(fmt) == fmt
+    with pytest.raises(ValueError, match="wire format"):
+        resolve_wire_format("bf16")
 
 
 def test_run_extraction_refuses_unported_wire_format(cfg):
+    """A format the JAX package does not know either raises before any
+    work; its codecs run (``tests/test_torch_wire.py``)."""
     _write_mat(cfg)
-    with pytest.raises(NotImplementedError, match="int24"):
-        run_extraction(cfg.replace(compute={"wire_format": "int24"}), device="cpu")
+    with pytest.raises(ValueError, match="bf16"):
+        run_extraction(cfg.replace(compute={"wire_format": "bf16"}), device="cpu")
+    assert not list(cfg.paths.calculated_features.glob("*.mat"))
 
 
 def test_io_mat_matches_jax(tmp_path):

@@ -1,5 +1,6 @@
 """The port stands alone: ``amcpy_tpu_torch`` and ``chip_smoke.py`` import
-nothing of JAX or of the ``amcpy_tpu`` package, and every entry point that
+nothing of JAX, flax or msgpack (the card's machine has none of them) or of
+the ``amcpy_tpu`` package, and every entry point that
 defaults to the CUDA card raises when there is none instead of carrying on
 on the CPU.
 """
@@ -33,13 +34,14 @@ def test_every_module_imports_without_jax():
     assert "amcpy_tpu_torch.ops.fused" in mods and "amcpy_tpu_torch.serve" in mods
     assert "amcpy_tpu_torch.ops.cnn_infer" in mods
     assert "amcpy_tpu_torch.train.evaluate" in mods
-    for new in ("train.training", "ops.quantize", "models.layers", "cli", "__main__"):
+    for new in ("train.training", "ops.quantize", "models.layers", "cli", "__main__",
+                "server", "ops.wire", "train.flax_msgpack"):
         assert f"amcpy_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax')\n"
-        "             or m.startswith(('jax.', 'flax.'))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'msgpack')\n"
+        "             or m.startswith(('jax.', 'flax.', 'msgpack.'))\n"
         "             or m == 'amcpy_tpu' or m.startswith('amcpy_tpu.'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -53,7 +55,7 @@ def test_every_module_imports_without_jax():
 
 def test_no_source_names_jax_or_the_jax_package():
     sources = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax)\b|amcpy_tpu\.", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|msgpack)\b|amcpy_tpu\.", re.M)
     bad = [str(p.relative_to(ROOT)) for p in sources if pattern.search(p.read_text())]
     assert not bad, bad
     assert len(sources) > 15
@@ -75,6 +77,7 @@ def _entry_points(tmp_path):
     from amcpy_tpu_torch.ops.features import extract_features
     from amcpy_tpu_torch.preprocessing import Standardizer
     from amcpy_tpu_torch.serve import AMCPipeline
+    from amcpy_tpu_torch.server import AMCServer
     from amcpy_tpu_torch.train.checkpoint import save_checkpoint
     from amcpy_tpu_torch.train.evaluate import (
         confusion_counts,
@@ -116,6 +119,9 @@ def _entry_points(tmp_path):
         "accuracy": lambda: accuracy(model, np.ones((2, 6)), np.zeros(2)),
         "cli classify": lambda: main(["--root", str(tmp_path), "classify", "BPSK",
                                       "--model-id", "m"]),
+        "AMCServer": lambda: AMCServer(cfg, "m", port=0),
+        "cli serve": lambda: main(["--root", str(tmp_path), "serve", "--model-id", "m",
+                                   "--port", "0"]),
     }
 
 
