@@ -1,24 +1,34 @@
 """Command-line interface of the port: ``python -m amcpy_tpu_torch``.
 
-Counterpart of ``amcpy_tpu/cli.py`` for the subcommands ``info``,
-``extract``, ``train`` (``--model mlp|cnn``, ``--resume``), ``eval``,
-``quantize``, ``classify`` and ``serve``, with the same flags; every flag
-reaches the frozen config through ``Config.replace`` before any work
-starts. The global ``--device`` (default ``cuda``) is the counterpart of
+Counterpart of ``amcpy_tpu/cli.py``, every subcommand with the same flags:
+``info``, ``generate``, ``extract`` (``--force``, ``--profile DIR``,
+``--from-synthetic SEED``), ``plot``, ``train`` (``--model mlp|cnn``,
+``--resume``), ``eval``, ``quantize``, ``classify``, ``serve``, ``sweep``,
+``parity`` and ``full`` (extract -> plot -> train). Every flag reaches the
+frozen config through ``Config.replace`` before any work starts. The
+global ``--device`` (default ``cuda``) is the counterpart of
 ``JAX_PLATFORMS``: every command runs on that device, and ``cuda`` without
-a card raises. Where the JAX commands draw figures, these write the
-numbers: ``figures/{id}_figure_data.mat`` (the per-SNR accuracy matrix)
-and ``figures/cm-{id}.json`` (the confusion matrix), and print them.
+a card raises.
+
+Every command that the JAX package draws figures for writes the numbers
+too: ``figures/{id}_figure_data.mat`` (the per-SNR accuracy matrix),
+``figures/cm-{id}.json`` (the confusion matrix),
+``figures/features/feature_stats.mat`` (``plot``) and
+``figures/quant-accuracy-{id}.mat`` (``quantize --compare``); the PNGs and
+``all_plots.html`` are drawn as well where matplotlib imports (the card's
+machine has none). ``sweep`` writes ``metrics/sweep_best.yaml`` in YAML,
+or in YAML's JSON form where PyYAML is absent; ``--config`` reads either.
 A model id names the port's ``ann/model-{id}.pt`` or, where there is none,
 the JAX package's ``ann/model-{id}.msgpack``; without an id the newest of
-either is taken. ``generate``, ``plot``, ``sweep``, ``parity`` and ``full``
-are not ported yet (ROADMAP).
+either is taken. ``parity --ref`` has no default: it names the original
+amcpy checkout.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+from pathlib import Path
 
 from amcpy_tpu_torch.config import Config
 
@@ -41,9 +51,23 @@ def build_parser() -> argparse.ArgumentParser:
 
     sub.add_parser("info", help="Show device and config diagnostics")
 
+    gen_p = sub.add_parser("generate", help="Generate a synthetic IQ dataset")
+    gen_p.add_argument("--seed", type=int, default=0)
+    gen_p.add_argument("--frames", type=int, default=None)
+    gen_p.add_argument("--frame-size", type=int, default=None)
+
     ext_p = sub.add_parser("extract", help="Extract features from raw .mat data")
     ext_p.add_argument("--force", action="store_true",
                        help="recompute even if artifacts exist")
+    ext_p.add_argument("--profile", default=None, metavar="DIR",
+                       help="write a torch.profiler Chrome trace to DIR")
+    ext_p.add_argument(
+        "--from-synthetic", type=int, default=None, metavar="SEED",
+        help="synthesize frames on the device and extract in one pass (no "
+             "raw-IQ host round trip; no mat-data needed)",
+    )
+
+    sub.add_parser("plot", help="Generate feature visualisations")
 
     train_p = sub.add_parser("train", help="Train the neural network")
     train_p.add_argument(
@@ -119,6 +143,45 @@ def build_parser() -> argparse.ArgumentParser:
              "beyond loopback is an explicit --host 0.0.0.0 opt-in",
     )
     srv_p.add_argument("--port", type=int, default=8000)
+
+    sweep_p = sub.add_parser("sweep", help="Hyperparameter sweep")
+    sweep_p.add_argument("--spec", default=None,
+                         help="W&B-format sweep YAML (default: reference space)")
+    sweep_p.add_argument("--trials", type=int, default=20)
+    sweep_p.add_argument("--seed", type=int, default=0)
+    sweep_p.add_argument(
+        "--method", choices=["bayes", "random"], default="bayes",
+        help="bayes = Tree-structured Parzen Estimator (the reference "
+             "sweep.yaml method), random = uniform search",
+    )
+    sweep_p.add_argument(
+        "--parallel", type=int, default=1,
+        help="trials per round, trained concurrently on the device",
+    )
+
+    par_p = sub.add_parser(
+        "parity",
+        help="Diff the original amcpy extractor against this pipeline on the "
+             "dataset (features + downstream accuracy)",
+    )
+    par_p.add_argument("--ref", required=True,
+                       help="path to the original amcpy checkout")
+    par_p.add_argument(
+        "--frames-per-snr", type=int, default=None,
+        help="subsample frames per (mod, SNR) block (default: all)",
+    )
+    par_p.add_argument("--no-train", action="store_true",
+                       help="skip the downstream accuracy comparison")
+    par_p.add_argument("--seed", type=int, default=0)
+    par_p.add_argument(
+        "--seeds", type=int, default=3,
+        help="training seeds per feature set: the accuracy delta is diffed "
+             "on mean curves and compared against seed noise",
+    )
+    par_p.add_argument("--processes", type=int, default=None,
+                       help="reference-extractor worker processes")
+
+    sub.add_parser("full", help="Run full pipeline: extract -> plot -> train")
     return parser
 
 
@@ -206,15 +269,22 @@ def _resume(cfg: Config, args):
     return cfg, initial, meta.get("history") or {}, model, scaler
 
 
-def _report(cfg: Config, model_id: str, acc, cm) -> None:
-    """Write and print the per-SNR accuracy and the confusion matrix."""
+def _report(cfg: Config, model_id: str, acc, cm, history=None) -> None:
+    """Write and print the per-SNR accuracy and the confusion matrix, and
+    where matplotlib imports draw them (and the training history)."""
     import numpy as np
 
+    from amcpy_tpu_torch import graphics
     from amcpy_tpu_torch.train.evaluate import save_confusion_matrix, save_figure_data
 
     save_figure_data(cfg, model_id, acc)
     path = save_confusion_matrix(cfg, model_id, cm)
     print(f"Confusion matrix -> {path}")
+    if graphics.have_matplotlib():
+        graphics.plot_accuracy_by_snr(acc, model_id, cfg)
+        graphics.plot_confusion_matrix(np.asarray(cm), model_id, cfg)
+        if history is not None:
+            graphics.plot_history(history, model_id, cfg)
     print(np.array2string(np.asarray(cm), precision=2))
     print(f"Mean accuracy across SNR: {np.mean(acc):.4f}")
 
@@ -236,6 +306,9 @@ def cmd_info(cfg: Config, args: argparse.Namespace) -> None:
     print(f"device: {dev}; extraction kernel: {kernel}"
           + (f" (resolves to {resolve_kernel(kernel, dev)})" if kernel == "auto" else ""))
     print(f"wire format: {cfg.compute.wire_format}")
+    from amcpy_tpu_torch.data.native_io import available
+
+    print(f"native amc_io: {'built' if available() else 'unavailable (NumPy fallback)'}")
     print(f"project root: {cfg.paths.root}")
     for name, p in [
         ("dataset", cfg.paths.mat_data / cfg.paths.mat_filename),
@@ -248,16 +321,44 @@ def cmd_info(cfg: Config, args: argparse.Namespace) -> None:
             print(f"{name}: {p} ({'present' if p.exists() else 'MISSING'})")
 
 
-def cmd_extract(cfg: Config, args: argparse.Namespace) -> None:
-    from amcpy_tpu_torch.extraction import run_extraction
+def cmd_generate(cfg: Config, args: argparse.Namespace) -> None:
+    from amcpy_tpu_torch.data.synth import write_dataset
 
-    _require(cfg.paths.mat_data / cfg.paths.mat_filename, "provide all_modulations.mat")
-    run_extraction(cfg, force=args.force, device=args.device)
+    over = {}
+    if args.frames:
+        over["num_frames"] = args.frames
+    if args.frame_size:
+        over["frame_size"] = args.frame_size
+    if over:
+        cfg = cfg.replace(signals=over)
+    path = write_dataset(cfg, seed=args.seed, device=args.device)
+    print(f"Dataset written -> {path}")
+
+
+def cmd_extract(cfg: Config, args: argparse.Namespace) -> None:
+    from amcpy_tpu_torch.extraction import run_extraction, run_extraction_synthetic
+
+    if getattr(args, "from_synthetic", None) is not None:
+        run_extraction_synthetic(cfg, seed=args.from_synthetic, device=args.device)
+    else:
+        _require(
+            cfg.paths.mat_data / cfg.paths.mat_filename,
+            "provide all_modulations.mat, run `generate` first, or extract "
+            "with --from-synthetic SEED",
+        )
+        run_extraction(cfg, force=getattr(args, "force", False),
+                       profile_dir=getattr(args, "profile", None), device=args.device)
     print("All feature calculations complete!")
 
 
+def cmd_plot(cfg: Config, args: argparse.Namespace) -> None:
+    from amcpy_tpu_torch.graphics import run_plots
+
+    run_plots(cfg)
+
+
 def cmd_train(cfg: Config, args: argparse.Namespace) -> None:
-    if args.model == "cnn":
+    if getattr(args, "model", "mlp") == "cnn":
         _cmd_train_cnn(cfg, args)
         return
     from amcpy_tpu_torch.preprocessing import preprocess
@@ -284,7 +385,7 @@ def cmd_train(cfg: Config, args: argparse.Namespace) -> None:
     acc = evaluate_by_snr(model, scaler, features, cfg, device=args.device)
     cm = confusion_counts(model, x_test, y_test, len(cfg.signals.modulations_with_noise),
                           device=args.device)
-    _report(cfg, model_id, acc, cm)
+    _report(cfg, model_id, acc, cm, history)
 
 
 def _cmd_train_cnn(cfg: Config, args: argparse.Namespace) -> None:
@@ -333,7 +434,7 @@ def _cmd_train_cnn(cfg: Config, args: argparse.Namespace) -> None:
     print(f"Model saved -> {cfg.paths.trained_ann}/model-{model_id}.pt")
     acc = evaluate_by_snr_raw(model, data, cfg, device=args.device)
     cm = confusion_counts(model, x_test, y_test, n_classes, chunk=4096, device=args.device)
-    _report(cfg, model_id, acc, cm)
+    _report(cfg, model_id, acc, cm, history)
 
 
 def _eval_cm_dataset(cfg: Config, args, meta, build):
@@ -474,6 +575,13 @@ def cmd_quantize(cfg: Config, args: argparse.Namespace) -> None:
         p_f = save_confusion_matrix(cfg, model_id, cm_f, tag="quant-cm-float")
         p_q = save_confusion_matrix(cfg, model_id, cm_q, tag="quant-cm-int16")
         print(f"Confusion matrices -> {p_f}, {p_q}")
+        from amcpy_tpu_torch import graphics
+
+        if graphics.have_matplotlib():
+            graphics.plot_quantization_comparison(acc_f, acc_q, model_id, cfg)
+            graphics.plot_confusion_matrix(np.asarray(cm_f), model_id, cfg,
+                                           tag="quant-cm-float")
+            graphics.plot_confusion_matrix(cm_q, model_id, cfg, tag="quant-cm-int16")
         delta = np.abs(acc_f - acc_q)
         print(
             f"Max per-SNR accuracy delta float vs int16: {delta.max() * 100:.2f} pp "
@@ -518,14 +626,116 @@ def cmd_serve(cfg: Config, args: argparse.Namespace) -> None:
     serve_forever(cfg, args.model_id, host=args.host, port=args.port, device=args.device)
 
 
+def _write_best_config(cfg: Config, best: dict) -> Path:
+    """``metrics/sweep_best.yaml``: the best trial's training settings, in
+    YAML, or in YAML's JSON form where PyYAML is absent."""
+    import json
+
+    hidden = [
+        int(best["params"].get(f"layer_size_hl{k}", d))
+        for k, d in ((1, 26), (2, 29), (3, 30))
+    ]
+    doc = {
+        "training": {
+            **{
+                k: best["params"][k]
+                for k in ("batch_size", "dropout", "epochs", "learning_rate",
+                          "optimizer", "activation")
+                if k in best["params"]
+            },
+            "hidden_sizes": hidden,
+        }
+    }
+    try:
+        import yaml
+    except ImportError:
+        text = json.dumps(doc, indent=2)
+    else:
+        text = yaml.safe_dump(doc)
+    path = cfg.paths.metrics / "sweep_best.yaml"
+    path.write_text(text)
+    return path
+
+
+def cmd_sweep(cfg: Config, args: argparse.Namespace) -> None:
+    import json
+
+    from amcpy_tpu_torch.preprocessing import preprocess
+    from amcpy_tpu_torch.train.sweep import load_sweep_spec, run_sweep
+
+    features = _load_features(cfg)
+    x_train, x_test, y_train, y_test, _ = preprocess(features, cfg)
+    spec = load_sweep_spec(args.spec) if args.spec else None
+    best, _ = run_sweep(
+        cfg, x_train, y_train, x_test, y_test,
+        spec=spec, n_trials=args.trials, seed=args.seed,
+        method=args.method, parallel=args.parallel, device=args.device,
+    )
+    print(f"Best trial: {json.dumps(best, indent=2)}")
+    path = _write_best_config(cfg, best)
+    print(f"Best config -> {path} (use with: --config {path} train)")
+
+
+def cmd_parity(cfg: Config, args: argparse.Namespace) -> None:
+    from amcpy_tpu_torch.parity import run_parity
+
+    _require(cfg.paths.mat_data / cfg.paths.mat_filename, "run `generate` first")
+    report = run_parity(
+        cfg,
+        ref_root=args.ref,
+        frames_per_snr=args.frames_per_snr,
+        train_models=not args.no_train,
+        seed=args.seed,
+        n_seeds=args.seeds,
+        processes=args.processes,
+        device=args.device,
+    )
+    worst = report["worst_error_fraction_of_tolerance"]
+    bad = report["frames_outside_tolerance"]
+    print(
+        f"Feature parity: {bad}/{report['frames_total']} frames outside "
+        f"tolerance (worst {worst * 100:.1f}% of budget)"
+    )
+    if "accuracy" in report:
+        a = report["accuracy"]
+        b = a["budget"]
+        print(
+            "Accuracy parity (paired seeds): mean |delta| "
+            f"{a['mean_abs_delta'] * 100:.2f} pp, max |delta| "
+            f"{a['max_abs_delta'] * 100:.2f} pp per (mod, SNR) cell "
+            f"({a.get('n_seeds', 1)} paired seeds) -> budget "
+            f"{'PASS' if b['pass'] else 'FAIL'} "
+            f"(mean<={b['mean_pp']}pp, max<={b['max_pp']}pp)"
+        )
+        if a.get("delta_within_seed_noise") is not None:
+            print(
+                "  -> "
+                + ("within paired-seed noise" if a["delta_within_seed_noise"]
+                   else "EXCEEDS paired-seed noise (systematic)")
+                + f" ({a['cells_exceeding_noise']}/{a['n_cells']} cells "
+                "over the family-wise noise bound)"
+            )
+
+
+def cmd_full(cfg: Config, args: argparse.Namespace) -> None:
+    cmd_extract(cfg, args)
+    cmd_plot(cfg, args)
+    cmd_train(cfg, args)
+
+
 COMMANDS = {
     "info": cmd_info,
+    "generate": cmd_generate,
     "extract": cmd_extract,
+    "plot": cmd_plot,
     "train": cmd_train,
     "eval": cmd_eval,
     "quantize": cmd_quantize,
     "classify": cmd_classify,
     "serve": cmd_serve,
+    "sweep": cmd_sweep,
+    "parity": cmd_parity,
+    "full": cmd_full,
 }
 
 

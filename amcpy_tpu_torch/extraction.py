@@ -14,6 +14,12 @@ encodes each chunk's planes into block-float integers, they cross through
 the same pinned buffers, and the device decodes them just before K1. Any
 other route uploads float32, and ``timings["wire"]`` says which format ran.
 
+:func:`run_extraction_synthetic` draws the frames on the device
+(``data/synth.py``) and feeds them to the same per-chunk extractor, so no
+raw IQ crosses the host boundary; only the features come back.
+``run_extraction(profile_dir=...)`` records the extraction with
+``torch.profiler`` and writes a Chrome trace.
+
 Not ported here: device meshes, sequence parallelism and multi-host
 partitioning.
 """
@@ -21,7 +27,9 @@ partitioning.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import time
+from pathlib import Path
 from typing import Callable
 
 import numpy as np
@@ -41,6 +49,7 @@ __all__ = [
     "PreparedBatch",
     "resolve_kernel",
     "run_extraction",
+    "run_extraction_synthetic",
 ]
 
 KERNELS = ("fused", "pallas", "xla")
@@ -301,12 +310,16 @@ def run_extraction(
     *,
     force: bool = False,
     logger: MetricsLogger | None = None,
+    profile_dir: str | None = None,
     device: "str | torch.device | None" = None,
 ) -> dict[str, np.ndarray]:
     """Extract features for every modulation in the dataset.
 
     Returns ``{modulation: (num_snr, num_frames, 18) float32}`` and writes
-    the per-modulation ``{MOD}_features.mat`` artifacts.
+    the per-modulation ``{MOD}_features.mat`` artifacts. ``profile_dir``:
+    the extraction of every modulation runs under ``torch.profiler`` (host
+    and, on a card, device activity) and its Chrome trace is written to
+    ``profile_dir/extract_trace.json``.
     """
     dev = resolve_device(device)
     resolve_wire_format(cfg.compute.wire_format)
@@ -339,39 +352,120 @@ def run_extraction(
             wire=cfg.compute.wire_format, device=dev,
         )
 
+    prof = _profiler(dev) if profile_dir else contextlib.nullcontext()
     loader = cf.ThreadPoolExecutor(1)
     try:
         fut = loader.submit(_load_prepared, todo[0]) if todo else None
-        for k, mod in enumerate(todo):
-            (n_snr, n_frames, _), prepared = fut.result()
-            fut = (
-                loader.submit(_load_prepared, todo[k + 1])
-                if k + 1 < len(todo) else None
-            )
-            with stage_timer(
-                logger, "extract", device=dev, modulation=mod
-            ) as rec:
-                tim: dict = {}
-                feats = extract_batch(
-                    prepared,
-                    normalize_scale=cfg.compute.normalize_scale,
-                    gmax_mode=cfg.compute.gmax_mode,
-                    kernel=cfg.compute.kernel,
-                    timings=tim,
-                    device=dev,
+        with prof:
+            for k, mod in enumerate(todo):
+                (n_snr, n_frames, _), prepared = fut.result()
+                fut = (
+                    loader.submit(_load_prepared, todo[k + 1])
+                    if k + 1 < len(todo) else None
                 )
-                rec["frames"] = int(n_snr * n_frames)
-                rec["kernel"] = resolve_kernel(cfg.compute.kernel, dev)
-                rec.update(tim)
-            fps = rec["frames"] / max(rec["wall_s"], 1e-9)
-            print(
-                f"[{mod}] {rec['frames']} frames in {rec['wall_s']:.2f}s "
-                f"({fps:,.0f} frames/s) [h2d {tim['h2d_s']:.3f}s, prep "
-                f"{tim['host_prep_s']:.3f}s, wait {tim['wait_s']:.3f}s]"
-            )
-            feats = feats.reshape(n_snr, n_frames, NUM_FEATURES)
-            io_mat.save_features(cfg, mod, feats)
-            results[mod] = feats
+                with stage_timer(
+                    logger, "extract", device=dev, modulation=mod
+                ) as rec:
+                    tim: dict = {}
+                    feats = extract_batch(
+                        prepared,
+                        normalize_scale=cfg.compute.normalize_scale,
+                        gmax_mode=cfg.compute.gmax_mode,
+                        kernel=cfg.compute.kernel,
+                        timings=tim,
+                        device=dev,
+                    )
+                    rec["frames"] = int(n_snr * n_frames)
+                    rec["kernel"] = resolve_kernel(cfg.compute.kernel, dev)
+                    rec.update(tim)
+                fps = rec["frames"] / max(rec["wall_s"], 1e-9)
+                print(
+                    f"[{mod}] {rec['frames']} frames in {rec['wall_s']:.2f}s "
+                    f"({fps:,.0f} frames/s) [h2d {tim['h2d_s']:.3f}s, prep "
+                    f"{tim['host_prep_s']:.3f}s, wait {tim['wait_s']:.3f}s]"
+                )
+                feats = feats.reshape(n_snr, n_frames, NUM_FEATURES)
+                io_mat.save_features(cfg, mod, feats)
+                results[mod] = feats
     finally:
         loader.shutdown(wait=True)
+    if profile_dir:
+        out = Path(profile_dir) / "extract_trace.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out))
+        print(f"Profiler trace -> {out}")
+    return results
+
+
+def _profiler(dev: torch.device):
+    """``torch.profiler`` over host activity and, on a card, the device's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
+
+
+def run_extraction_synthetic(
+    cfg: Config,
+    seed: int = 0,
+    *,
+    logger: MetricsLogger | None = None,
+    device: "str | torch.device | None" = None,
+) -> dict[str, np.ndarray]:
+    """Generate on the device and extract in one pass: each modulation's
+    frames are drawn in device memory by ``synth.gen_planes`` (the frames
+    ``synth.write_dataset(cfg, seed)`` writes on the same device) and fed
+    to the extractor of ``cfg.compute.kernel`` in chunks of
+    :func:`_default_chunk_size` rows; only the ``(num_snr, num_frames,
+    18)`` features come back. Writes the ``{MOD}_features.mat`` artifacts
+    and logs one ``extract_synthetic`` record a modulation.
+
+    One modulation is resident at a time (at the default size, 262 MB of
+    planes). The JAX package pads each chunk to a multiple of its mesh's
+    data axis; on one device there is nothing to pad, and the last chunk
+    is simply shorter.
+    """
+    from amcpy_tpu_torch.data import synth
+
+    dev = resolve_device(device)
+    cfg.paths.ensure_dirs()
+    if logger is None:
+        logger = MetricsLogger(cfg.paths.metrics / "run.jsonl")
+    s = cfg.signals
+    kern, wants_planes = _kernel_fn(
+        cfg.compute.kernel, cfg.compute.normalize_scale, cfg.compute.gmax_mode, dev
+    )
+    chunk = _default_chunk_size(dev, s.frame_size)
+    results: dict[str, np.ndarray] = {}
+    for mi, mod in enumerate(s.modulations_with_noise):
+        with stage_timer(logger, "extract_synthetic", device=dev, modulation=mod) as rec:
+            i, q = synth.gen_planes(
+                synth.seeded_generator(seed * 1000 + mi, dev), synth.points_of(mod),
+                s.snr_db, s.num_frames, s.frame_size, True, dev,
+            )
+            feats = np.empty((i.shape[0], NUM_FEATURES), dtype=np.float32)
+            # a chunk's features are read back only once the next chunk is
+            # queued, so the host's wait overlaps the device's work
+            pending = None
+            for start in range(0, i.shape[0], chunk):
+                ci, cq = i[start : start + chunk], q[start : start + chunk]
+                part = kern(ci, cq) if wants_planes else kern(torch.stack((ci, cq), 1))
+                if pending is not None:
+                    feats[pending[0] : pending[0] + len(pending[1])] = pending[1].cpu().numpy()
+                pending = (start, part)
+            if pending is not None:
+                feats[pending[0] : pending[0] + len(pending[1])] = pending[1].cpu().numpy()
+            del i, q
+            rec["frames"] = int(feats.shape[0])
+            rec["kernel"] = resolve_kernel(cfg.compute.kernel, dev)
+        fps = rec["frames"] / max(rec["wall_s"], 1e-9)
+        print(
+            f"[{mod}] {rec['frames']} frames in {rec['wall_s']:.2f}s "
+            f"({fps:,.0f} frames/s, on-device synthesis)"
+        )
+        feats = feats.reshape(s.num_snr, s.num_frames, NUM_FEATURES)
+        io_mat.save_features(cfg, mod, feats)
+        results[mod] = feats
     return results

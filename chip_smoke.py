@@ -77,7 +77,19 @@ Phases, each printing one JSON line:
    with a config in YAML's JSON form; each must exit 0 and leave its
    artifacts; then ``serve --port 0`` (the newest checkpoint): its
    "listening on" line is read, one request is posted (200, one label a
-   frame), and SIGINT stops it (exit 0);
+   frame), and SIGINT stops it (exit 0); then, in this process through
+   ``cli.main`` (so the launch counters see them), on a dataset that
+   ``generate --seed 3 --frames 50`` writes: its frames bit-identical to
+   ``synth.generate_dataset`` drawn again on the card, ``extract`` against
+   ``extract --from-synthetic 3`` (K1's kernel-against-kernel tolerance;
+   identical is expected), ``extract --profile DIR`` (the trace names K1's
+   kernel as often as the counter counts it; the share of the traced
+   window in which the card was busy is printed), ``plot`` (the numbers,
+   and PNGs only where matplotlib imports), ``full``, ``sweep --trials 2
+   --seed 1 --method random`` at ``--parallel`` 1 and 2 (identical
+   parameters, trial metrics within 3e-3) and ``parity`` against a
+   stand-in checkout whose extractor is ``tests/oracle.py`` (no frame
+   outside the budget, the paired-accuracy budget passes);
 11. server — ``AMCServer`` on 127.0.0.1, port 0, over three checkpoints:
    the JAX package's committed ``tests/fixtures/flax_ckpt`` MLP and CNN
    (``model-jax-*.msgpack``, read without msgpack) and phase 8's trained
@@ -102,14 +114,25 @@ Phases, each printing one JSON line:
    fixture's int24 serving program (one K1 launch; logits within 1e-3 of
    the float32 program, at least 99 % identical argmax) and one 4096-frame
    extraction chunk through the int24 wire (at most 0.25 of
-   ``1e-4 * term_scales + 1e-5 * |want|`` against the float32 wire).
+   ``1e-4 * term_scales + 1e-5 * |want|`` against the float32 wire);
+13. synthetic — ``run_extraction_synthetic(seed=11)`` at the default size
+   (6 x 16 x 1000 x 2048): frames drawn on the card by ``synth.gen_planes``
+   and fed to K1 in chunks of 4096 rows (24 launches), wall time and
+   frames/s, ``gen_planes``'s time for one modulation on CUDA events, 512
+   random rows against the plain extractor on the same frames drawn again
+   (``2e-4 * term_scales + 2e-5 * |want|``), and on the card the noise
+   power of every SNR level within 5 standard errors of 10^(-snr/10),
+   |x| at 200 dB within 1e-5 of the constellation's magnitudes and WGN of
+   unit power.
 
-Ten paths are driven through the kernels: extraction and serving with
+Sixteen paths are driven through the kernels: extraction and serving with
 ``kernel="auto"`` (both through K1), serving with ``kernel="pallas"``
 (through K2), CNN serving (through K3), serving of phase 9's trained
 CNN (through K3), the three servers of phase 11 (the MLPs through K1, the
-CNN through K3), and the int24 serving program and extraction of phase 12
-(through K1). Every launch counter is set to 0 just before each path
+CNN through K3), the int24 serving program and extraction of phase 12
+(through K1), phase 10's ``extract``, ``extract --from-synthetic``,
+``extract --profile``, ``full`` and ``parity`` (through K1), and phase 13's
+synthetic extraction (through K1). Every launch counter is set to 0 just before each path
 and read just after it; the run fails if a path did not launch its kernel.
 The checked call of each request also records its own launches; phases 8
 and 9 record theirs (training runs no kernel of the port). Then come the
@@ -881,6 +904,277 @@ def phase_cli(dev, cfg, data, work) -> dict:
             "checkpoints": len(ckpts)}
 
 
+#: the synthetic path's statistics: a measured mean within this many
+#: standard errors of the value the generator promises
+STAT_SE = 5.0
+
+
+def noise_stats(torch, synth, dev, mod: str, snr_db, frames: int, n: int, seed: int) -> dict:
+    """On the card: noise power per SNR level against 10^(-snr/10) (the
+    noise isolated by drawing the same stream again at 200 dB, where it is
+    ~1e-10) in standard errors, and the largest distance of |x| at 200 dB
+    from the constellation's magnitudes; WGN's power per level against 1."""
+    def planes(levels):
+        i, q = synth.gen_planes(synth.seeded_generator(seed, dev), synth.points_of(mod),
+                                levels, frames, n, True, dev)
+        return i.double(), q.double()
+
+    i, q = planes(snr_db)
+    if mod == "WGN":
+        p = (i * i + q * q).reshape(len(snr_db), -1)
+        want = torch.ones(len(snr_db), dtype=torch.float64, device=dev)
+        mag_err = None
+    else:
+        i0, q0 = planes((200,) * len(snr_db))
+        i.sub_(i0)
+        q.sub_(q0)
+        p = (i * i + q * q).reshape(len(snr_db), -1)
+        want = torch.tensor([10.0 ** (-v / 10.0) for v in snr_db], dtype=torch.float64,
+                            device=dev)
+        mags = np.unique(np.round(np.abs(synth.points_of(mod)), 12))
+        r = torch.hypot(i0, q0)
+        mag_err = float(torch.stack([(r - m).abs() for m in mags]).amin(dim=0).max())
+    se = p.std(dim=1) / p.shape[1] ** 0.5
+    z = ((p.mean(dim=1) - want).abs() / se).max()
+    return {"max_power_err_in_se": float(z), "max_magnitude_err": mag_err}
+
+
+def phase_synthetic(torch, dev, cfg, work, counts, zero_counts, paths) -> dict:
+    """Phase 13: frames drawn on the card and fed to K1 at the default
+    size (6 x 16 x 1000 x 2048), ``run_extraction_synthetic(seed=11)``."""
+    from amcpy_tpu_torch.data import io_mat, synth
+    from amcpy_tpu_torch.extraction import _default_chunk_size, run_extraction_synthetic
+    from amcpy_tpu_torch.ops import features as F
+    from amcpy_tpu_torch.utils.metrics import MetricsLogger
+
+    seed = 11
+    scfg = cfg.replace(paths={"root": str(work / "synthetic")})
+    s = scfg.signals
+    mods = s.modulations_with_noise
+    rows = s.num_snr * s.num_frames
+
+    def draw(mi):
+        return synth.gen_planes(synth.seeded_generator(seed * 1000 + mi, dev),
+                                synth.points_of(mods[mi]), s.snr_db, s.num_frames,
+                                s.frame_size, True, dev)
+
+    # gen_planes alone, one modulation (BPSK), on CUDA events after a warm draw
+    draw(0)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    gen_ms = []
+    for _ in range(3):
+        e0.record()
+        planes = draw(0)
+        e1.record()
+        torch.cuda.synchronize()
+        gen_ms.append(e0.elapsed_time(e1))
+    del planes
+
+    log = work / "synthetic" / "metrics" / "synthetic.jsonl"
+    zero_counts()
+    t0 = time.perf_counter()
+    results = run_extraction_synthetic(scfg, seed=seed, device=dev, logger=MetricsLogger(log))
+    wall = time.perf_counter() - t0
+    paths["synthetic"] = ("fused", counts())
+    chunk = _default_chunk_size(dev, s.frame_size)
+    want_launches = len(mods) * -(-rows // chunk)
+    for mod in mods:
+        art = io_mat.load_features(scfg, mod)
+        if art.shape != (s.num_snr, s.num_frames, 18) or not np.isfinite(art).all():
+            raise AssertionError(f"{mod}: synthetic artifact {art.shape} not finite/shaped")
+    recs = [json.loads(t) for t in log.read_text().splitlines()]
+
+    # 512 random rows against the plain extractor on the same frames, drawn
+    # again on the card from the same generators
+    rng = np.random.default_rng(13)
+    picks = np.sort(rng.choice(len(mods) * rows, 512, replace=False))
+    got, want, frames = [], [], []
+    for mi, mod in enumerate(mods):
+        sel = picks[(picks >= mi * rows) & (picks < (mi + 1) * rows)] - mi * rows
+        if not len(sel):
+            continue
+        i, q = draw(mi)
+        idx = torch.from_numpy(sel).to(dev)
+        pi, pq = i[idx], q[idx]
+        want.append(F.extract_features_planar(torch.stack((pi, pq), 1), gmax_mode="matmul"))
+        frames.append(pi.cpu().numpy() + 1j * pq.cpu().numpy())
+        got.append(torch.from_numpy(results[mod].reshape(-1, 18)[sel]))
+        del i, q
+    err, ratio = compare(torch.cat(got), torch.cat(want), np.concatenate(frames))
+
+    stats = {mod: noise_stats(torch, synth, dev, mod, s.snr_db, s.num_frames, s.frame_size,
+                              seed * 1000 + mi) for mi, mod in enumerate(mods)}
+    line = {"phase": "synthetic", "frames": len(mods) * rows, "frame_size": s.frame_size,
+            "wall_s": wall, "frames_per_s": len(mods) * rows / wall,
+            "per_modulation_s": {r["modulation"]: r["wall_s"] for r in recs},
+            "gen_planes_ms_one_modulation": gen_ms, "chunk": chunk,
+            "launches": paths["synthetic"][1], "launches_expected": want_launches,
+            "rows_checked": 512, "max_abs_err": err, "max_err_over_tol": ratio,
+            "statistics_bar_se": STAT_SE, "statistics": stats}
+    bad_stats = [m for m, v in stats.items() if v["max_power_err_in_se"] > STAT_SE
+                 or (v["max_magnitude_err"] is not None and v["max_magnitude_err"] > 1e-5)]
+    if (paths["synthetic"][1]["fused"] != want_launches or ratio > 1.0 or bad_stats
+            or len(recs) != len(mods) or any(r["event"] != "extract_synthetic" for r in recs)):
+        raise AssertionError(f"synthetic extraction failed its checks: {line}")
+    return line
+
+
+#: the stand-in for the original amcpy checkout that ``parity`` runs against
+#: (absent here): the float64 oracle of ``tests/oracle.py``, not the reference
+STAND_IN = """import sys
+sys.path.insert(0, {tests!r})
+from oracle import features_frame
+
+
+def calculate_features(ids, signal):
+    return features_frame(signal)[[i - 1 for i in ids]]
+"""
+
+
+def trace_summary(path: Path) -> dict:
+    """From a Chrome trace of ``torch.profiler``: the device kernels by name
+    (launches), and the share of the traced window (first to last event)
+    in which the card ran a kernel, a copy or a memset."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -np.inf
+    for a, b in device:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = (max(float(e["ts"]) + float(e["dur"]) for e in events)
+              - min(float(e["ts"]) for e in events))
+    kernels: dict[str, int] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    return {"window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
+            "busy_share": busy / window if window > 0 else 0.0, "kernels": kernels}
+
+
+def phase_cli_synthetic(torch, dev, cfg, work, counts, zero_counts, paths) -> dict:
+    """Phase 10, the commands of the synthetic data, figures, sweep and
+    parity, in this process on the card (``cli.main``, so that the launch
+    counters see them) on a 50-frame-a-block dataset from ``generate``."""
+    from amcpy_tpu_torch import graphics
+    from amcpy_tpu_torch.cli import main as cli_main
+    from amcpy_tpu_torch.data import io_mat, synth
+
+    root = work / "cli_synthetic"
+    small = cfg.replace(paths={"root": str(root)}, signals={"num_frames": 50})
+    root.mkdir(parents=True)
+    config = root / "small.yaml"
+    config.write_text(json.dumps({"signals": {"num_frames": 50,
+                                              "frame_size": small.signals.frame_size}}))
+    base = ["--root", str(root), "--config", str(config), "--device", str(dev)]
+    mods = small.signals.modulations_with_noise
+    runs: dict[str, float] = {}
+
+    def run(name, *argv, path=None):
+        if path:
+            zero_counts()
+        t0 = time.perf_counter()
+        cli_main(base + list(argv))
+        runs[name] = time.perf_counter() - t0
+        if path:
+            paths[path] = ("fused", counts())
+
+    def features():
+        return {m: io_mat.load_features(small, m) for m in mods}
+
+    run("generate", "generate", "--seed", "3", "--frames", "50")
+    written = io_mat.load_dataset(small)
+    drawn = synth.generate_dataset(small, seed=3, device=dev)
+    frames_identical = all(np.array_equal(written[m], drawn[small.signals.mat_info[m]])
+                           for m in mods)
+    run("extract", "extract", path="cli_extract")
+    from_file = features()
+    run("extract --from-synthetic", "extract", "--from-synthetic", "3",
+        path="cli_from_synthetic")
+    from_synthetic = features()
+    flat = np.concatenate([written[m].reshape(-1, small.signals.frame_size) for m in mods])
+    _, synth_ratio = compare(
+        torch.from_numpy(np.concatenate([from_synthetic[m].reshape(-1, 18) for m in mods])),
+        torch.from_numpy(np.concatenate([from_file[m].reshape(-1, 18) for m in mods])), flat)
+    features_identical = all(np.array_equal(from_file[m], from_synthetic[m]) for m in mods)
+
+    prof = root / "profile"
+    run("extract --profile", "extract", "--force", "--profile", str(prof), path="cli_profile")
+    trace = trace_summary(prof / "extract_trace.json")
+    k1_names = [k for k in trace["kernels"] if "fused_kernel" in k]
+    k1_traced = sum(trace["kernels"][k] for k in k1_names)
+
+    run("plot", "plot")
+    fig_dir = root / "figures" / "features"
+    drawn_figs = sorted(p.name for p in fig_dir.glob("*.png"))
+    plot_ok = (fig_dir / "feature_stats.mat").exists() and (
+        bool(drawn_figs) == graphics.have_matplotlib())
+
+    shutil.rmtree(root / "calculated-features")
+    run("full", "full", path="cli_full")
+    full_ok = (len(features()) == len(mods)
+               and len(list((root / "ann").glob("model-*.pt"))) == 1)
+
+    sweep_log = root / "metrics" / "sweep.jsonl"
+    sweeps = []
+    for parallel in ("1", "2"):
+        before = len(sweep_log.read_text().splitlines()) if sweep_log.exists() else 0
+        run(f"sweep --parallel {parallel}", "sweep", "--trials", "2", "--seed", "1",
+            "--method", "random", "--parallel", parallel)
+        sweeps.append([json.loads(t) for t in sweep_log.read_text().splitlines()[before:]])
+    same_params = [t["params"] for t in sweeps[0]] == [t["params"] for t in sweeps[1]]
+    metric_gap = max(abs(a["metric"] - b["metric"]) for a, b in zip(*sweeps))
+    best_cfg = type(cfg).from_yaml(root / "metrics" / "sweep_best.yaml")
+
+    stand_in = work / "stand_in" / "src" / "amcpy"
+    stand_in.mkdir(parents=True)
+    tests_dir = Path(__file__).resolve().parent / "tests"
+    (stand_in / "features.py").write_text(STAND_IN.format(tests=str(tests_dir)))
+    run("parity", "parity", "--ref", str(work / "stand_in"), "--frames-per-snr", "2",
+        "--seeds", "1", "--processes", "2", path="cli_parity")
+    report = json.loads((root / "metrics" / "parity.json").read_text())
+
+    line = {"phase": "cli_synthetic", "frames_per_block": 50, "seconds": runs,
+            "generate_frames_identical_to_on_card_draw": frames_identical,
+            "from_synthetic_features_identical": features_identical,
+            "from_synthetic_max_err_over_tol": synth_ratio,
+            "profile": {"k1_kernel_names": k1_names, "k1_launches_traced": k1_traced,
+                        "window_ms": trace["window_ms"],
+                        "device_busy_ms": trace["device_busy_ms"],
+                        "busy_share": trace["busy_share"]},
+            "plot": {"matplotlib": graphics.have_matplotlib(), "pngs": len(drawn_figs)},
+            "sweep": {"params": [t["params"] for t in sweeps[0]],
+                      "params_identical": same_params, "metric_gap": metric_gap,
+                      "metrics": [[t["metric"] for t in sw] for sw in sweeps],
+                      "best_hidden_sizes": list(best_cfg.training.hidden_sizes)},
+            "parity": {"frames": report["frames_total"],
+                       "outside_tolerance": report["frames_outside_tolerance"],
+                       "worst_of_budget": report["worst_error_fraction_of_tolerance"],
+                       "accuracy_mean_abs_delta": report["accuracy"]["mean_abs_delta"],
+                       "accuracy_max_abs_delta": report["accuracy"]["max_abs_delta"],
+                       "accuracy_budget_pass": report["accuracy"]["budget"]["pass"]},
+            "launches": {p: paths[p][1]["fused"] for p in
+                         ("cli_extract", "cli_from_synthetic", "cli_profile", "cli_full",
+                          "cli_parity")}}
+    print(f"extract --profile: the card was busy {trace['busy_share']:.4f} of the traced "
+          f"window ({trace['device_busy_ms']:.3f} of {trace['window_ms']:.3f} ms)", flush=True)
+    if not (frames_identical and synth_ratio <= 1.0 and k1_names
+            and k1_traced == paths["cli_profile"][1]["fused"] > 0 and plot_ok and full_ok
+            and same_params and metric_gap <= SWEEP_METRIC_GAP
+            and report["frames_outside_tolerance"] == 0
+            and report["worst_error_fraction_of_tolerance"] <= 1.0
+            and report["accuracy"]["budget"]["pass"]):
+        raise AssertionError(f"the synthetic-data commands failed their checks: {line}")
+    return line
+
+
+#: a random sweep's trial metrics at ``--parallel`` 1 and 2 on the card:
+#: the whole-run agreement of two trainings from one seed (ROADMAP C-watch 10)
+SWEEP_METRIC_GAP = 3e-3
+
+
 def cli_serve(dev, root: Path, config: Path, repo: Path, data) -> dict:
     """``serve`` as a subprocess on port 0 (the newest checkpoint): read its
     "listening on" line, POST one request, stop it with SIGINT; it must
@@ -1580,12 +1874,18 @@ def main() -> int:
 
         # ---- phase 10: the command line, in subprocesses on the card -------
         emit(phase_cli(dev, cfg, data, work))
+        # and the synthetic-data, figure, sweep and parity commands, paths
+        # 11-15, in this process
+        emit(phase_cli_synthetic(torch, dev, cfg, work, counts, zero_counts, paths))
 
         # ---- phase 11: the HTTP server, paths 6-8 ---------------------------
         emit(phase_server(torch, dev, cfg, flat, order, mlp_id, counts, zero_counts, paths))
 
         # ---- phase 12: the int24 wire, paths 9-10 ---------------------------
         emit(phase_wire(torch, dev, cfg, flat, order, counts, zero_counts, paths))
+
+        # ---- phase 13: frames drawn on the card and fed to K1, path 16 -------
+        emit(phase_synthetic(torch, dev, cfg, work, counts, zero_counts, paths))
 
         for path, (key, c) in paths.items():
             if c[key] == 0 or c["reroutes"]:

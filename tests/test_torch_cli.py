@@ -3,7 +3,9 @@ tiny numpy-made dataset, on the CPU (``--device cpu``): extract -> train ->
 eval -> quantize --emit-c -> classify, resume, the CNN family, and the
 refusals. Mirrors ``tests/test_cli.py``; the figures the JAX commands draw
 are written as numbers (``figures/{id}_figure_data.mat``,
-``figures/cm-{id}.json``).
+``figures/cm-{id}.json``) and, where matplotlib imports, drawn too. Drawing
+at the JAX package's 300 dpi takes seconds a command, so the commands run
+without matplotlib unless a test checks the figures.
 """
 
 import argparse
@@ -61,9 +63,15 @@ def project(tmp_path_factory):
     return root, cfg_yaml, cfg
 
 
-def _run(project, *argv):
+def _run(project, *argv, figures=False):
     root, cfg_yaml, _ = project
-    main(["--root", str(root), "--config", str(cfg_yaml), "--device", "cpu", *argv])
+    argv = ["--root", str(root), "--config", str(cfg_yaml), "--device", "cpu", *argv]
+    if figures:
+        main(argv)
+        return
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "matplotlib", None)  # the figures' numbers only
+        main(argv)
 
 
 def _newest_meta(root):
@@ -78,10 +86,12 @@ def test_full_pipeline(project, capsys):
         feats = scipy.io.loadmat(str(root / "calculated-features" / f"{mod}_features.mat"))
         assert feats[Config().signals.mat_info[mod]].shape == (16, FRAMES, 18)
 
-    _run(project, "train", "--epochs", "5", "--seed", "0")
+    _run(project, "train", "--epochs", "5", "--seed", "0", figures=True)
     ckpts = list((root / "ann").glob("model-*.pt"))
     assert len(ckpts) == 1
     model_id = ckpts[0].stem.replace("model-", "")
+    for name in ("cm", "accuracy", "history"):
+        assert (root / "figures" / f"{name}-{model_id}.png").exists(), name
     meta = json.loads((root / "ann" / f"model-{model_id}.json").read_text())
     assert len(meta["history"]["loss"]) == 5 and meta["epoch"] == 5  # --epochs reached training
     acc = scipy.io.loadmat(str(root / "figures" / f"{model_id}_figure_data.mat"))["acc"]
@@ -210,10 +220,11 @@ def test_quantize_compare(project, capsys):
     model_id, _ = _newest_meta(root)
     capsys.readouterr()
     _run(project, "quantize", model_id, "--compare", "--no-fold-bn", "--range-mode",
-         "reference")
+         "reference", figures=True)
     assert "Max per-SNR accuracy delta" in capsys.readouterr().out
     for name in (f"quant-accuracy-{model_id}.mat", f"quant-cm-float-{model_id}.json",
-                 f"quant-cm-int16-{model_id}.json"):
+                 f"quant-cm-int16-{model_id}.json", f"quant-accuracy-{model_id}.png",
+                 f"quant-cm-float-{model_id}.png", f"quant-cm-int16-{model_id}.png"):
         assert (root / "figures" / name).exists()
 
 

@@ -563,3 +563,76 @@ def test_int24_program_launches_k1_once_a_request(cuda, tmp_path):
         want = f32.logits(frames)
         torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
         assert (got.argmax(-1) == want.argmax(-1)).float().mean() >= 0.99
+
+
+def test_gen_planes_statistics_on_card(cuda):
+    """The frames drawn on the card (Philox): noise power per SNR level
+    within 5 standard errors of 10^(-snr/10) (the noise isolated by drawing
+    the same stream at 200 dB), |x| at 200 dB on the constellation's
+    magnitudes within 1e-5, WGN of unit power (``tests/test_torch_synth.py``
+    holds the CPU's stream to the same bars)."""
+    from amcpy_tpu_torch.data import synth
+
+    snr = (-10, 0, 10, 20)
+    for mod in ("BPSK", "16QAM", "64QAM"):
+        def planes(levels):
+            i, q = synth.gen_planes(synth.seeded_generator(3, cuda), synth.points_of(mod),
+                                    levels, 64, 512, True, cuda)
+            return i.double(), q.double()
+
+        i, q = planes(snr)
+        i0, q0 = planes((200,) * len(snr))
+        p = ((i - i0) ** 2 + (q - q0) ** 2).reshape(len(snr), -1)
+        want = torch.tensor([10.0 ** (-s / 10.0) for s in snr], dtype=torch.float64, device=cuda)
+        se = p.std(dim=1) / p.shape[1] ** 0.5
+        assert ((p.mean(dim=1) - want).abs() <= 5 * se).all(), mod
+        mags = torch.tensor(np.unique(np.round(np.abs(synth.points_of(mod)), 12)), device=cuda)
+        dist = (torch.hypot(i0, q0)[..., None] - mags).abs().min(dim=-1).values
+        assert float(dist.max()) <= 1e-5, mod
+    i, q = synth.gen_planes(synth.seeded_generator(4, cuda), None, snr, 64, 512, True, cuda)
+    p = (i.double() ** 2 + q.double() ** 2).reshape(len(snr), -1)
+    assert ((p.mean(dim=1) - 1).abs() <= 5 * p.std(dim=1) / p.shape[1] ** 0.5).all()
+
+
+def test_entry_points_draw_the_same_frames_on_card(cuda, tmp_path):
+    """``generate_dataset`` and ``gen_planes`` on the card give the same
+    frames for a seed, and the card's stream is not the CPU's."""
+    from amcpy_tpu_torch.data import synth
+
+    cfg = Config().replace(paths={"root": str(tmp_path)},
+                           signals={"num_frames": 5, "frame_size": 256, "snr_db": (0, 10)})
+    data = synth.generate_dataset(cfg, seed=6, device=cuda)
+    mi = cfg.signals.modulations_with_noise.index("QPSK")
+    i, q = synth.gen_planes(synth.seeded_generator(6 * 1000 + mi, cuda), synth.points_of("QPSK"),
+                            (0, 10), 5, 256, True, cuda)
+    np.testing.assert_array_equal(data["signal_qpsk"].real.reshape(10, 256), i.cpu().numpy())
+    np.testing.assert_array_equal(data["signal_qpsk"].imag.reshape(10, 256), q.cpu().numpy())
+    again = synth.generate_dataset(cfg, seed=6, device=cuda)
+    np.testing.assert_array_equal(again["signal_noise"], data["signal_noise"])
+    on_cpu = synth.generate_dataset(cfg, seed=6, device="cpu")
+    assert not np.array_equal(on_cpu["signal_qpsk"], data["signal_qpsk"])
+
+
+def test_synthetic_extraction_launches_k1_once_a_chunk(cuda, tmp_path, monkeypatch):
+    """``run_extraction_synthetic`` on the card: one K1 launch per chunk
+    (30 rows a modulation in chunks of 8: 4 launches each, the last one
+    ragged), the features within K1's tolerance of the plain extractor on
+    the same frames, and equal to ``write_dataset`` + ``run_extraction``."""
+    from amcpy_tpu_torch import extraction
+    from amcpy_tpu_torch.data import synth
+
+    cfg = Config().replace(paths={"root": str(tmp_path)},
+                           signals={"num_frames": 6, "frame_size": 2048,
+                                    "snr_db": (-10, 0, 5, 10, 20)})
+    monkeypatch.setattr(extraction, "_default_chunk_size", lambda dev, n: 8)
+    extract_features_fused.launches = 0
+    got = extraction.run_extraction_synthetic(cfg, seed=4, device=cuda)
+    assert extract_features_fused.launches == 6 * 4
+    synth.write_dataset(cfg, seed=4, device=cuda)
+    host = extraction.run_extraction(cfg, force=True, device=cuda)
+    data = synth.generate_dataset(cfg, seed=4, device=cuda)
+    for mod, feats in got.items():
+        frames = data[cfg.signals.mat_info[mod]].reshape(-1, 2048)
+        want = F.extract_features_planar(torch.from_numpy(F.to_planar(frames)).to(cuda))
+        _assert_within(feats.reshape(-1, 18), want.cpu().double().numpy(), frames, 2e-4, 2e-5)
+        _assert_within(feats.reshape(-1, 18), host[mod].reshape(-1, 18), frames, 2e-4, 2e-5)

@@ -5,6 +5,7 @@ defaults to the CUDA card raises when there is none instead of carrying on
 on the CPU.
 """
 
+import json
 import pkgutil
 import re
 import subprocess
@@ -35,7 +36,8 @@ def test_every_module_imports_without_jax():
     assert "amcpy_tpu_torch.ops.cnn_infer" in mods
     assert "amcpy_tpu_torch.train.evaluate" in mods
     for new in ("train.training", "ops.quantize", "models.layers", "cli", "__main__",
-                "server", "ops.wire", "train.flax_msgpack"):
+                "server", "ops.wire", "train.flax_msgpack", "data.synth", "graphics",
+                "data.native_io", "data.legacy", "arm.analysis", "train.sweep", "parity"):
         assert f"amcpy_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -85,6 +87,10 @@ def _entry_points(tmp_path):
         evaluate_by_snr_raw,
     )
     from amcpy_tpu_torch.cli import main
+    from amcpy_tpu_torch.data import io_mat, synth
+    from amcpy_tpu_torch.extraction import run_extraction_synthetic
+    from amcpy_tpu_torch.parity import run_parity
+    from amcpy_tpu_torch.train.sweep import run_sweep
     from amcpy_tpu_torch.train.training import accuracy, train
     from amcpy_tpu_torch.utils.device import resolve_device
 
@@ -97,7 +103,27 @@ def _entry_points(tmp_path):
     mods = cfg.signals.modulations_with_noise
     raw = {m: np.ones((1, 1, 256), np.complex64) for m in mods}
     feats = {m: np.ones((1, 1, 18), np.float32) for m in mods}
+    io_mat.save_dataset(cfg, raw)
+    for m in mods:
+        io_mat.save_features(cfg, m, np.ones((16, 2, 18), np.float32))
+    tiny = ["--root", str(tmp_path)]
     return {
+        "gen_planes": lambda: synth.gen_planes(None, None, (0,), 1, 8, True),
+        "generate_modulation": lambda: synth.generate_modulation("BPSK", cfg, 0),
+        "generate_dataset": lambda: synth.generate_dataset(cfg),
+        "write_dataset": lambda: synth.write_dataset(cfg),
+        "run_extraction_synthetic": lambda: run_extraction_synthetic(cfg),
+        "run_sweep": lambda: run_sweep(cfg, np.ones((4, 6)), np.zeros(4), np.ones((2, 6)),
+                                       np.zeros(2), n_trials=1),
+        "run_parity": lambda: run_parity(cfg, ref_root=tmp_path),
+        "cli generate": lambda: main(tiny + ["generate"]),
+        "cli extract --from-synthetic": lambda: main(tiny + ["extract", "--from-synthetic",
+                                                              "1"]),
+        "cli extract --profile": lambda: main(tiny + ["extract", "--force", "--profile",
+                                                      str(tmp_path / "prof")]),
+        "cli full": lambda: main(tiny + ["full"]),
+        "cli sweep": lambda: main(tiny + ["sweep", "--trials", "1"]),
+        "cli parity": lambda: main(tiny + ["parity", "--ref", str(tmp_path)]),
         "resolve_device": lambda: resolve_device(),
         "extract_features": lambda: extract_features(_frames()),
         "prepare_frames": lambda: prepare_frames(_frames()),
@@ -136,3 +162,39 @@ def test_explicit_cpu_device_runs(tmp_path, no_cuda):
     from amcpy_tpu_torch.extraction import extract_batch
 
     assert extract_batch(_frames(), device="cpu").shape == (2, 18)
+
+
+def test_new_commands_need_no_yaml_matplotlib_or_jax(tmp_path):
+    """The card's machine has none of PyYAML, matplotlib, h5py or JAX: with
+    each of them made unimportable, every module imports and ``generate``,
+    ``extract --from-synthetic``, ``plot``, ``sweep`` (its best config
+    written in YAML's JSON form and read back by ``--config``) and
+    ``full`` run on the CPU."""
+    code = f"""
+import importlib, json, sys
+for m in ("yaml", "matplotlib", "h5py", "jax", "flax", "msgpack", "amcpy_tpu"):
+    sys.modules[m] = None
+mods = {_modules()!r}
+for m in mods:
+    importlib.import_module(m)
+from amcpy_tpu_torch.cli import main
+root = {str(tmp_path)!r}
+cfg = root + "/cfg.yaml"
+open(cfg, "w").write(json.dumps({{"signals": {{"num_frames": 3, "frame_size": 64}},
+                                 "training": {{"epochs": 1}}}}))
+base = ["--root", root, "--config", cfg, "--device", "cpu"]
+main(base + ["generate", "--seed", "1"])
+main(base + ["extract", "--from-synthetic", "1"])
+main(base + ["plot"])
+spec = root + "/spec.yaml"
+open(spec, "w").write(json.dumps({{"parameters": {{"epochs": {{"values": [1]}}}}}}))
+main(base + ["sweep", "--trials", "1", "--method", "random", "--spec", spec])
+main(["--root", root, "--config", root + "/metrics/sweep_best.yaml", "--device", "cpu",
+      "full"])
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    assert "matplotlib is absent" in out.stdout
+    assert (tmp_path / "figures" / "features" / "feature_stats.mat").exists()
+    assert json.loads((tmp_path / "metrics" / "sweep_best.yaml").read_text())["training"]
