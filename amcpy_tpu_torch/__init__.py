@@ -1,7 +1,8 @@
 """amcpy_tpu_torch — the PyTorch/CUDA port of amcpy_tpu for NVIDIA Hopper.
 
-It runs the original flow on one CUDA device: a ``.mat`` dataset -> 18
-features per frame (hand-written CUDA kernels, ``csrc/features.cu``) ->
+It runs the original flow on a CUDA device, or over ranks of
+``torch.distributed`` (``parallel/``, one rank a device): a ``.mat``
+dataset -> 18 features per frame (hand-written CUDA kernels, ``csrc/features.cu``) ->
 standardize and split -> training of the feature MLP or of the raw-IQ CNN
 -> per-SNR evaluation -> Q-format int16 export with a C header; and serves
 both families (the CNN's trunk in ``csrc/cnn_trunk.cu``). ``python -m

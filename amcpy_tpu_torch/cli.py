@@ -22,6 +22,15 @@ A model id names the port's ``ann/model-{id}.pt`` or, where there is none,
 the JAX package's ``ann/model-{id}.msgpack``; without an id the newest of
 either is taken. ``parity --ref`` has no default: it names the original
 amcpy checkout.
+
+``--distributed`` (or ``AMCPY_NUM_PROCESSES`` in the environment) joins
+the process group first (``parallel/mesh.py::init_distributed``: one rank
+a device, NCCL on a card, gloo with ``--device cpu``) and prints a
+``[distributed] process r/W ...`` line. Every subcommand then runs on
+every rank: ``extract`` splits the modulations round-robin, ``train``
+is data-parallel, the evaluations split their rows, checkpoints are
+written by rank 0 and copied where absent, and only rank 0 writes the
+figures and their numbers.
 """
 
 from __future__ import annotations
@@ -46,6 +55,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--device", default="cuda",
         help="device every command runs on (cuda, cuda:N or cpu)",
+    )
+    parser.add_argument(
+        "--distributed", action="store_true",
+        help="join the process group before any work (torch.distributed; "
+             "also triggered by AMCPY_NUM_PROCESSES, with AMCPY_COORDINATOR "
+             "and AMCPY_PROCESS_ID, or torchrun's variables)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -275,16 +290,19 @@ def _report(cfg: Config, model_id: str, acc, cm, history=None) -> None:
     import numpy as np
 
     from amcpy_tpu_torch import graphics
+    from amcpy_tpu_torch.parallel.mesh import is_primary
     from amcpy_tpu_torch.train.evaluate import save_confusion_matrix, save_figure_data
 
-    save_figure_data(cfg, model_id, acc)
-    path = save_confusion_matrix(cfg, model_id, cm)
-    print(f"Confusion matrix -> {path}")
-    if graphics.have_matplotlib():
-        graphics.plot_accuracy_by_snr(acc, model_id, cfg)
-        graphics.plot_confusion_matrix(np.asarray(cm), model_id, cfg)
-        if history is not None:
-            graphics.plot_history(history, model_id, cfg)
+    # every rank evaluated; only the primary writes the shared artifacts
+    if is_primary():
+        save_figure_data(cfg, model_id, acc)
+        path = save_confusion_matrix(cfg, model_id, cm)
+        print(f"Confusion matrix -> {path}")
+        if graphics.have_matplotlib():
+            graphics.plot_accuracy_by_snr(acc, model_id, cfg)
+            graphics.plot_confusion_matrix(np.asarray(cm), model_id, cfg)
+            if history is not None:
+                graphics.plot_history(history, model_id, cfg)
     print(np.array2string(np.asarray(cm), precision=2))
     print(f"Mean accuracy across SNR: {np.mean(acc):.4f}")
 
@@ -295,6 +313,8 @@ def cmd_info(cfg: Config, args: argparse.Namespace) -> None:
     import amcpy_tpu_torch
     from amcpy_tpu_torch.extraction import resolve_kernel
 
+    from amcpy_tpu_torch.parallel.mesh import group_up
+
     print(f"amcpy_tpu_torch {amcpy_tpu_torch.__version__}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     if torch.cuda.is_available():
@@ -302,6 +322,16 @@ def cmd_info(cfg: Config, args: argparse.Namespace) -> None:
     else:
         print("devices: no CUDA device (use --device cpu)")
     dev = torch.device(args.device)
+    if group_up():
+        import torch.distributed as dist
+
+        print(f"processes: {dist.get_world_size()} (this is rank {dist.get_rank()}), "
+              f"backend {dist.get_backend()}; devices: {dist.get_world_size()}, one a "
+              f"rank (this rank's: {dev})")
+    else:
+        print("processes: 1")
+    print(f"mesh shape: {tuple(cfg.compute.mesh_shape) or 'auto'} "
+          f"({cfg.compute.data_axis}, {cfg.compute.seq_axis})")
     kernel = cfg.compute.kernel
     print(f"device: {dev}; extraction kernel: {kernel}"
           + (f" (resolves to {resolve_kernel(kernel, dev)})" if kernel == "auto" else ""))
@@ -740,10 +770,31 @@ COMMANDS = {
 
 
 def main(argv: list[str] | None = None) -> None:
+    import os
+
     args = build_parser().parse_args(argv)
-    cfg = _load_config(args)
-    cfg.paths.ensure_dirs()
-    COMMANDS[args.command](cfg, args)
+    joined = False
+    if args.distributed or os.environ.get("AMCPY_NUM_PROCESSES"):
+        import torch.distributed as dist
+
+        from amcpy_tpu_torch.parallel.mesh import group_up, init_distributed
+
+        was_up = group_up()
+        if init_distributed(device=args.device):
+            joined = not was_up
+            import torch
+
+            dev = (torch.device("cuda", torch.cuda.current_device())
+                   if dist.get_backend() == "nccl" else torch.device("cpu"))
+            print(f"[distributed] process {dist.get_rank()}/{dist.get_world_size()}, "
+                  f"backend {dist.get_backend()}, device {dev}", flush=True)
+    try:
+        cfg = _load_config(args)
+        cfg.paths.ensure_dirs()
+        COMMANDS[args.command](cfg, args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -230,9 +230,10 @@ class TrainingConfig:
 class ComputeConfig:
     """Device layout and numeric policy.
 
-    ``data_axis``, ``seq_axis`` and ``mesh_shape`` lay out the JAX
-    package's device mesh; the port runs on one device and keeps them only
-    so that one YAML file reads the same in both packages.
+    ``data_axis``, ``seq_axis`` and ``mesh_shape`` lay out the mesh of a
+    multi-process run (``parallel/mesh.py::make_mesh``: one rank a device,
+    ``(data, seq)``, every rank on ``data`` when ``mesh_shape`` is empty);
+    a run of one process without a group uses none of them.
     """
 
     data_axis: str = "data"
@@ -254,7 +255,8 @@ class ComputeConfig:
     # "auto" = "fused" on a CUDA device, "xla" on the CPU.
     kernel: str = "auto"
     # Host->device codec for raw IQ frames: "auto" and "f32" ship raw
-    # float32 planes; "int24"/"int16" are not ported yet and raise.
+    # float32 planes; "int24"/"int16" ship block-float integers decoded on
+    # the device before the fused kernel (ops/wire.py).
     wire_format: str = "auto"
 
 

@@ -20,8 +20,22 @@ raw IQ crosses the host boundary; only the features come back.
 ``run_extraction(profile_dir=...)`` records the extraction with
 ``torch.profiler`` and writes a Chrome trace.
 
-Not ported here: device meshes, sequence parallelism and multi-host
-partitioning.
+With a process group up, :func:`run_extraction` takes the JAX package's
+multi-device routes (``extraction.py:570-583``, ``:666-710``):
+
+* round-robin, on a mesh whose ``seq`` axis is 1: modulation k goes to rank
+  ``k % W`` and is extracted on that rank's own device (K1 on a card) with
+  no collective; after a barrier each owner broadcasts the shape and then
+  the features of its modulations, and a rank that lacks an artifact
+  writes it, so every rank ends with all six on a filesystem of its own or
+  a shared one;
+* sequence-parallel, on a mesh whose ``seq`` axis is more than 1 (the
+  counterpart of the JAX package's single-process ``(data, seq)`` mesh):
+  every rank runs every modulation; each chunk is padded to a multiple of
+  ``64 * n_data`` rows, each rank takes its (data, seq) block to
+  :func:`~amcpy_tpu_torch.parallel.sp.extract_features_sp` and the data
+  blocks' features are all-gathered; rank 0 writes the artifacts and the
+  others write theirs where the file is absent.
 """
 
 from __future__ import annotations
@@ -34,12 +48,15 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from amcpy_tpu_torch.config import Config
 from amcpy_tpu_torch.data import io_mat
 from amcpy_tpu_torch.ops.features import NUM_FEATURES, extract_features_planar
 from amcpy_tpu_torch.ops.fft import best_factorization
 from amcpy_tpu_torch.ops.wire import decode_planes, encode_planes, resolve_wire_format
+from amcpy_tpu_torch.parallel.audit import all_gather, all_reduce, barrier, broadcast
+from amcpy_tpu_torch.parallel.mesh import group_up, is_primary, make_mesh, pad_to_multiple
 from amcpy_tpu_torch.utils.device import resolve_device
 from amcpy_tpu_torch.utils.metrics import MetricsLogger, stage_timer
 
@@ -319,29 +336,31 @@ def run_extraction(
     the per-modulation ``{MOD}_features.mat`` artifacts. ``profile_dir``:
     the extraction of every modulation runs under ``torch.profiler`` (host
     and, on a card, device activity) and its Chrome trace is written to
-    ``profile_dir/extract_trace.json``.
+    ``profile_dir/extract_trace.json``. With a process group up, every rank
+    calls it and every rank returns all six (the round-robin and
+    sequence-parallel routes of the module docstring).
     """
     dev = resolve_device(device)
     resolve_wire_format(cfg.compute.wire_format)
     cfg.paths.ensure_dirs()
     if logger is None:
         logger = MetricsLogger(cfg.paths.metrics / "run.jsonl")
+    all_mods = list(cfg.signals.modulations_with_noise)
+    rank, world = 0, 1
+    if group_up():
+        mesh = make_mesh(cfg)
+        if mesh.size(1) > 1:
+            return _run_extraction_sp(cfg, mesh, force, logger, dev)
+        rank, world = dist.get_rank(), dist.get_world_size()
 
     results: dict[str, np.ndarray] = {}
     todo: list[str] = []
-    for mod in cfg.signals.modulations_with_noise:
-        out_path = cfg.paths.calculated_features / f"{mod}_features.mat"
-        if out_path.exists() and not force:
-            try:
-                results[mod] = io_mat.load_features(cfg, mod)
-                logger.log("extract_skip", modulation=mod, path=str(out_path))
-                continue
-            except Exception as exc:  # corrupt artifact: recompute
-                logger.log(
-                    "extract_corrupt_artifact", modulation=mod, error=repr(exc)
-                )
-                print(f"[{mod}] corrupt artifact, recomputing: {exc}")
-        todo.append(mod)
+    for mod in all_mods[rank::world]:
+        loaded = _load_artifact(cfg, mod, force, logger)
+        if loaded is None:
+            todo.append(mod)
+        else:
+            results[mod] = loaded
 
     # a loader thread reads and prepares modulation k+1 while k is on the
     # device
@@ -394,6 +413,93 @@ def run_extraction(
         out.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(out))
         print(f"Profiler trace -> {out}")
+    if group_up():
+        _share_round_robin(cfg, results, all_mods, world)
+    return results
+
+
+def _load_artifact(cfg: Config, mod: str, force: bool, logger: MetricsLogger):
+    """``mod``'s features from its artifact, or None where it must be
+    computed: absent, ``force``, or corrupt (logged and recomputed)."""
+    out_path = cfg.paths.calculated_features / f"{mod}_features.mat"
+    if not out_path.exists() or force:
+        return None
+    try:
+        feats = io_mat.load_features(cfg, mod)
+    except Exception as exc:  # corrupt artifact: recompute
+        logger.log("extract_corrupt_artifact", modulation=mod, error=repr(exc))
+        print(f"[{mod}] corrupt artifact, recomputing: {exc}")
+        return None
+    logger.log("extract_skip", modulation=mod, path=str(out_path))
+    return feats
+
+
+def _share_round_robin(cfg: Config, results: dict, all_mods: list[str], world: int) -> None:
+    """After a barrier, modulation k's owner (rank ``k % world``) broadcasts
+    its features' shape (int64[3]) and then the float32 features; a rank
+    without them keeps them and writes the artifact where it is absent."""
+    barrier()
+    for k, mod in enumerate(all_mods):
+        owner = k % world
+        mine = results.get(mod)
+        shape = torch.tensor(mine.shape if mine is not None else (0, 0, 0), dtype=torch.int64)
+        shape = tuple(broadcast(shape, owner).tolist())
+        src = (torch.from_numpy(np.ascontiguousarray(mine, np.float32)) if mine is not None
+               else torch.zeros(shape, dtype=torch.float32))
+        got = broadcast(src, owner).numpy()
+        if mine is None:
+            results[mod] = got
+            if not (cfg.paths.calculated_features / f"{mod}_features.mat").exists():
+                io_mat.save_features(cfg, mod, got)
+
+
+def _run_extraction_sp(cfg: Config, mesh, force: bool, logger: MetricsLogger,
+                       dev: torch.device) -> dict[str, np.ndarray]:
+    """The sequence-parallel route of :func:`run_extraction`: every rank
+    runs every modulation that any rank lacks, its (data, seq) block of
+    each chunk through ``extract_features_sp``."""
+    from amcpy_tpu_torch.parallel.sp import extract_features_sp
+
+    n_data, n_seq = mesh.size(0), mesh.size(1)
+    d_idx = mesh.get_local_rank(mesh.mesh_dim_names[0])
+    s_idx = mesh.get_local_rank(mesh.mesh_dim_names[1])
+    data_group = mesh.get_group(mesh.mesh_dim_names[0])
+    n = cfg.signals.frame_size
+    if n % n_seq:
+        raise ValueError(f"frame size {n} does not split over {n_seq} ranks of the seq axis")
+    all_mods = list(cfg.signals.modulations_with_noise)
+    results = {m: _load_artifact(cfg, m, force, logger) for m in all_mods}
+    # the ranks' collectives must pair up: a modulation any rank lacks is
+    # computed by all
+    lacking = all_reduce(torch.tensor([float(v is None) for v in results.values()]), "max")
+    todo = [m for m, flag in zip(all_mods, lacking.tolist()) if flag]
+    chunk = _default_chunk_size(dev, n)
+    cols = slice(s_idx * (n // n_seq), (s_idx + 1) * (n // n_seq))
+    for mod in todo:
+        with stage_timer(logger, "extract", device=dev, modulation=mod) as rec:
+            raw = io_mat.load_modulation(cfg, mod)  # (S, F, N)
+            frames = raw.reshape(-1, raw.shape[-1])
+            feats = np.empty((frames.shape[0], NUM_FEATURES), np.float32)
+            for start in range(0, frames.shape[0], chunk):
+                part, orig = pad_to_multiple(frames[start : start + chunk], 64 * n_data)
+                rows = slice(d_idx * (len(part) // n_data), (d_idx + 1) * (len(part) // n_data))
+                block = part[rows, cols]
+                i = torch.from_numpy(np.ascontiguousarray(block.real, np.float32)).to(dev)
+                q = torch.from_numpy(np.ascontiguousarray(block.imag, np.float32)).to(dev)
+                local = extract_features_sp(i, q, mesh, normalize_scale=cfg.compute.normalize_scale,
+                                            gmax_mode=cfg.compute.gmax_mode)
+                feats[start : start + orig] = all_gather(local, data_group)[:orig].cpu().numpy()
+            rec["frames"] = int(frames.shape[0])
+            rec["kernel"] = "sp"
+        print(f"[{mod}] {rec['frames']} frames in {rec['wall_s']:.2f}s "
+              f"(sequence-parallel, mesh {n_data} x {n_seq})")
+        results[mod] = feats.reshape(*raw.shape[:2], NUM_FEATURES)
+        if is_primary():
+            io_mat.save_features(cfg, mod, results[mod])
+    barrier()
+    for mod in todo:
+        if not (cfg.paths.calculated_features / f"{mod}_features.mat").exists():
+            io_mat.save_features(cfg, mod, results[mod])
     return results
 
 

@@ -62,9 +62,12 @@ class AMCClassifier(nn.Module):
         init_flax_defaults(self)
 
     def forward(
-        self, x: torch.Tensor, *, generator: torch.Generator | None = None
+        self, x: torch.Tensor, *, generator: torch.Generator | None = None, shard=None
     ) -> torch.Tensor:
-        """Logits; in training, dropout draws from ``generator``."""
+        """Logits; in training, dropout draws from ``generator``. With a
+        :class:`~amcpy_tpu_torch.parallel.mesh.DataShard`, ``x`` is this
+        rank's block of a global batch (``models/layers.py``)."""
         for dense, norm in zip(self.dense, self.norm):
-            x = dropout(self.act(norm(dense(x))), self.dropout, self.training, generator)
+            x = dropout(self.act(norm(dense(x), shard)), self.dropout, self.training,
+                        generator, shard)
         return self.out(x)

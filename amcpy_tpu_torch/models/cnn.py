@@ -73,13 +73,20 @@ def augmentation_draws(
     noise_prob: float,
     generator: torch.Generator | None = None,
     device: "torch.device | None" = None,
+    shard=None,
 ) -> tuple:
     """One batch's augmentation draws from ``generator``, as
     ``(theta, snr_db, keep, noise)`` for :func:`augment`: ``theta`` (B, 1)
     ~ U(0, 2 pi) when ``phase``; with ``noise_snr_db = (lo, hi)``, ``snr_db``
     (B, 1, 1) ~ U(lo, hi), ``keep`` (B, 1, 1) True with probability
     ``noise_prob`` and ``noise`` (B, 2, N) standard normal. What is not
-    drawn is None."""
+    drawn is None. With a ``shard`` (:class:`~amcpy_tpu_torch.parallel.mesh.DataShard`)
+    the draws are made for the global batch of ``B * shard.size`` rows and
+    the rank's rows of each are returned."""
+    if shard is not None:
+        return tuple(None if v is None else shard.local(v) for v in augmentation_draws(
+            b * shard.size, n, phase=phase, noise_snr_db=noise_snr_db,
+            noise_prob=noise_prob, generator=generator, device=device))
     theta = snr_db = keep = noise = None
     if phase:
         theta = torch.rand((b, 1), generator=generator, device=device) * (2 * math.pi)
@@ -173,19 +180,23 @@ class IQConvNet(nn.Module):
         }
 
     def forward(
-        self, x: torch.Tensor, *, generator: torch.Generator | None = None
+        self, x: torch.Tensor, *, generator: torch.Generator | None = None, shard=None
     ) -> torch.Tensor:
         """Logits; in training, the augmentation and dropout draw from
-        ``generator``."""
+        ``generator``. With a :class:`~amcpy_tpu_torch.parallel.mesh.DataShard`,
+        ``x`` is this rank's block of a global batch (``models/layers.py``).
+        The float32 steps run in the parameters' dtype (float32 unless the
+        module was cast, e.g. to float64 for a test)."""
         with no_tf32():
-            dt = self.compute_dtype
-            x = x.float()
+            base = self.out.weight.dtype
+            dt = base if self.dtype == "float32" else self.compute_dtype
+            x = x.to(base)
             if self.training and (self.aug_phase or self.aug_noise_snr_db is not None):
                 x = augment(x, *augmentation_draws(
                     x.shape[0], x.shape[-1], phase=self.aug_phase,
                     noise_snr_db=self.aug_noise_snr_db,
                     noise_prob=self.aug_noise_prob, generator=generator,
-                    device=x.device,
+                    device=x.device, shard=shard,
                 ))
             n2 = x.shape[-2] * x.shape[-1]
             rms = torch.sqrt(x.square().sum(dim=(-2, -1), keepdim=True) / n2 + 1e-12)
@@ -201,10 +212,10 @@ class IQConvNet(nn.Module):
                 else:
                     y = F.conv1d(x, w, None, stride=s)
                 y = y + conv.bias.to(dt)[:, None]
-                x = torch.relu(norm(y.float()).to(dt))
+                x = torch.relu(norm(y.to(base), shard).to(dt))
             pooled = torch.cat(
-                [(x.float().sum(-1) / x.shape[-1]).to(dt), x.amax(-1)], dim=-1
+                [(x.to(base).sum(-1) / x.shape[-1]).to(dt), x.amax(-1)], dim=-1
             )
             h = pooled @ self.dense.weight.to(dt).T + self.dense.bias.to(dt)
-            h = dropout(torch.relu(h), self.dropout, self.training, generator)
-            return self.out(h.float())
+            h = dropout(torch.relu(h), self.dropout, self.training, generator, shard)
+            return self.out(h.to(base))

@@ -16,12 +16,22 @@ steps:
   distribution: Dense and Conv kernels lecun-normal (a normal truncated at
   two standard deviations, scaled by fan-in), biases zero, BatchNorm scale 1
   and bias 0.
+
+Data-parallel training passes a
+:class:`~amcpy_tpu_torch.parallel.mesh.DataShard` (``shard``): the rank's
+rows are one block of a global batch, as in the JAX package's SPMD step.
+BatchNorm then takes the global batch's statistics (one differentiable
+all-reduce of the rank's weighted means of x and x^2), and dropout draws its
+mask for the global batch and keeps the rank's rows, so W ranks compute
+what one process computes on the same global batch.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from amcpy_tpu_torch.parallel.audit import all_reduce_autograd
 
 __all__ = ["FlaxBatchNorm1d", "dropout", "init_flax_defaults"]
 
@@ -41,17 +51,26 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     scale) + bias``, and the running statistics moved by momentum 0.9
     towards the batch mean and the biased batch variance. In eval: the
     running statistics, as ``nn.BatchNorm1d``.
+
+    With a ``shard`` the batch is the global one: each rank's means of x
+    and x^2, weighted by its share of the rows (1 / size), are summed over
+    the shard's group by one all-reduce whose gradient is summed too (the
+    JAX package's ``[sum x, sum x^2]`` over the global batch), and every
+    rank moves the same running statistics.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__(num_features, eps=eps, momentum=1.0 - FLAX_MOMENTUM)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         dims = (0,) if x.dim() == 2 else (0, 2)
-        mean = x.mean(dims)
-        var = torch.clamp(x.square().mean(dims) - mean.square(), min=0.0)
+        stats = torch.stack([x.mean(dims), x.square().mean(dims)])
+        if shard is not None:
+            stats = all_reduce_autograd(stats / shard.size, shard.group)
+        mean, mean_sq = stats
+        var = torch.clamp(mean_sq - mean.square(), min=0.0)
         with torch.no_grad():
             m = FLAX_MOMENTUM
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -67,17 +86,22 @@ def dropout(
     rate: float,
     training: bool,
     generator: torch.Generator | None = None,
+    shard=None,
 ) -> torch.Tensor:
     """flax's ``nn.Dropout``: in training, keep each value with probability
     ``1 - rate`` and scale it by ``1 / (1 - rate)``, the mask drawn from
     ``generator`` (the default generator when None); the identity in eval
-    or at rate 0."""
+    or at rate 0. With a ``shard`` the mask is drawn for the global batch
+    and the rank's rows of it are kept."""
     if not training or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=generator)
+    shape = x.shape if shard is None else (x.shape[0] * shard.size, *x.shape[1:])
+    mask = torch.empty(shape, device=x.device).bernoulli_(keep, generator=generator)
+    if shard is not None:
+        mask = shard.local(mask)
     return torch.where(mask.bool(), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -24,6 +24,11 @@ written by flax, decoded in plain Python by
 :mod:`~amcpy_tpu_torch.train.flax_msgpack`) with the same sidecar, when no
 ``.pt`` of that id exists: such a model serves, evaluates, quantizes and
 resumes in the port. The port writes ``.pt`` only.
+
+With a process group up, rank 0 writes a checkpoint first; after a barrier
+every other rank writes its own copy where the file is not there (as the
+JAX package does, ``checkpoint.py:50-55``), so checkpoints work on a
+filesystem the ranks share and on one each.
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ import torch
 from amcpy_tpu_torch.config import Config
 from amcpy_tpu_torch.models.classifier import AMCClassifier
 from amcpy_tpu_torch.models.cnn import IQConvNet
+from amcpy_tpu_torch.parallel.audit import barrier
+from amcpy_tpu_torch.parallel.mesh import group_up, is_primary
 from amcpy_tpu_torch.preprocessing import Standardizer
 from amcpy_tpu_torch.train.training import TrainState, _optimizer
 
@@ -133,11 +140,20 @@ def save_checkpoint(
             "model": model_meta or {"family": "mlp"},
         },
     }
-    _write_atomic(path, buf.getvalue(), "wb")
-    _write_atomic(
-        cfg.paths.trained_ann / f"model-{model_id}.json",
-        json.dumps(meta, indent=2), "w",
-    )
+
+    def write() -> None:
+        _write_atomic(path, buf.getvalue(), "wb")
+        _write_atomic(
+            cfg.paths.trained_ann / f"model-{model_id}.json",
+            json.dumps(meta, indent=2), "w",
+        )
+
+    if is_primary():
+        write()
+    if group_up():
+        barrier()
+        if not path.exists():  # a filesystem of this rank's own
+            write()
     return path
 
 

@@ -11,6 +11,12 @@ package.
 
 Entry points take ``device=None``, meaning the CUDA card, and raise when
 there is none; pass ``device="cpu"`` for the CPU.
+
+With a process group of more than one rank up, every rank calls the same
+entry point and the logits are computed over the ranks
+(:func:`~amcpy_tpu_torch.train.training.predict_logits_global`, as the JAX
+package's ``_logits_np`` routes, ``evaluate.py:34-44``); every rank gets
+the whole result.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 from amcpy_tpu_torch.config import Config
 from amcpy_tpu_torch.ops.features import to_planar
+from amcpy_tpu_torch.parallel.mesh import world_size
 from amcpy_tpu_torch.preprocessing import Standardizer
 from amcpy_tpu_torch.utils.device import no_tf32, resolve_device
 
@@ -46,16 +53,22 @@ def _predict_classes(
     """argmax class per row of ``x``, ``chunk`` rows at a time (all rows in
     one call when ``chunk`` is None). The model is moved to ``device`` and
     runs in eval mode there, in full float32 (no TF32); a ragged last chunk
-    runs as it is."""
+    runs as it is. With more than one rank, each chunk's rows are split
+    over them."""
+    from amcpy_tpu_torch.train.training import predict_logits_global
+
     model = model.to(device).eval()
     step = x.shape[0] if chunk is None else chunk
+    spread = world_size() > 1
     preds = []
     with no_tf32():
         for start in range(0, x.shape[0], max(step, 1)):
-            xb = torch.from_numpy(
-                np.ascontiguousarray(x[start : start + step], dtype=np.float32)
-            )
-            preds.append(model(xb.to(device)).argmax(dim=-1).cpu().numpy())
+            xb = np.ascontiguousarray(x[start : start + step], dtype=np.float32)
+            if spread:
+                logits = predict_logits_global(model, xb, device=device)
+            else:
+                logits = model(torch.from_numpy(xb).to(device))
+            preds.append(logits.argmax(dim=-1).cpu().numpy())
     return np.concatenate(preds) if preds else np.zeros(0, np.int64)
 
 

@@ -123,16 +123,39 @@ Phases, each printing one JSON line:
    (``2e-4 * term_scales + 2e-5 * |want|``), and on the card the noise
    power of every SNR level within 5 standard errors of 10^(-snr/10),
    |x| at 200 dB within 1e-5 of the constellation's magnitudes and WGN of
-   unit power.
+   unit power;
+14. multi_device — ``init_distributed`` brings up a process group of one
+   rank over NCCL on the card (a ``file://`` store; the backend is
+   asserted, and nothing falls back to gloo or the CPU): the default MLP
+   trained 3 epochs on phase 4's features through the data-parallel path
+   against the plain ``train`` of the same seed run just before the group
+   (history and the weights the data determine within 1e-5), one step's
+   collectives from ``audit_collectives()``, the ms of a data-parallel
+   step against the plain one, split into NCCL's calls, the port's
+   collective wrappers and the rest by taking them out one after the other
+   (rounds interleaved), and the ms of one all-reduce of its gradient
+   bucket alone, synchronized and issued back to back;
+   ``predict_logits_global`` against
+   ``predict_logits`` (within 1e-6); the round-robin ``run_extraction`` of
+   phase 10's 50-frame dataset through the group (6 K1 launches, only
+   broadcasts, artifacts bit-identical to the run without a group);
+   ``extract_features_sp`` on the (1, 1) mesh at 4096 x 2048 against the
+   plain extractor (``2e-4 * term_scales + 2e-5 * |want|``) and its ms
+   beside K1's on the same frames; the serving fan-out's decision (a rank
+   keeps to its card: one device, no fan-out). Then ``extract`` and ``train --epochs 2`` of the
+   command line as two gloo ranks on the CPU (``--device cpu``, 24 frames
+   a block, a root each), within 120 s, with bit-identical artifacts and
+   one checkpoint id.
 
-Sixteen paths are driven through the kernels: extraction and serving with
+Seventeen paths are driven through the kernels: extraction and serving with
 ``kernel="auto"`` (both through K1), serving with ``kernel="pallas"``
 (through K2), CNN serving (through K3), serving of phase 9's trained
 CNN (through K3), the three servers of phase 11 (the MLPs through K1, the
 CNN through K3), the int24 serving program and extraction of phase 12
 (through K1), phase 10's ``extract``, ``extract --from-synthetic``,
-``extract --profile``, ``full`` and ``parity`` (through K1), and phase 13's
-synthetic extraction (through K1). Every launch counter is set to 0 just before each path
+``extract --profile``, ``full`` and ``parity`` (through K1), phase 13's
+synthetic extraction (through K1) and phase 14's round-robin extraction
+through the process group (through K1). Every launch counter is set to 0 just before each path
 and read just after it; the run fails if a path did not launch its kernel.
 The checked call of each request also records its own launches; phases 8
 and 9 record theirs (training runs no kernel of the port). Then come the
@@ -1496,6 +1519,278 @@ def phase_wire(torch, dev, cfg, flat, order, counts, zero_counts, paths) -> dict
     return line
 
 
+#: the 2-rank CPU run of the command line in phase 14 must end within this
+CPU_RANKS_DEADLINE_S = 120.0
+
+
+def cpu_two_ranks(cfg, data, work: Path, repo: Path) -> dict:
+    """Phase 14's last part: ``extract`` and then ``train --epochs 2`` of
+    the command line as two gloo ranks on this machine's CPU (``--device
+    cpu``, ``AMCPY_*`` set, a ``file://`` store), each rank on a root of its
+    own holding a 24-frame-a-block copy of the dataset; both must exit 0,
+    every root must end with the six artifacts, bit-identical, and one
+    checkpoint of one id, within ``CPU_RANKS_DEADLINE_S``."""
+    import os
+
+    from amcpy_tpu_torch.data import io_mat
+
+    roots = [work / "ranks" / f"host{r}" for r in range(2)]
+    config = json.dumps({"signals": {"num_frames": 24}})
+    for root in roots:
+        small = cfg.replace(paths={"root": str(root)}, signals={"num_frames": 24})
+        io_mat.save_dataset(small, {m: a[:, :24] for m, a in data.items()})
+        (root / "cfg.yaml").write_text(config)
+    t0 = time.perf_counter()
+    runs = []
+    for argv in (["extract"], ["train", "--epochs", "2"]):
+        store = work / "ranks" / f"store-{argv[0]}"
+        env = dict(os.environ, AMCPY_COORDINATOR=f"file://{store}",
+                   AMCPY_NUM_PROCESSES="2", OMP_NUM_THREADS="4")
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "amcpy_tpu_torch", "--device", "cpu", "--root", str(root),
+             "--config", str(root / "cfg.yaml"), *argv],
+            cwd=repo, env=dict(env, AMCPY_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r, root in enumerate(roots)]
+        outs = []
+        try:
+            for p in procs:
+                left = CPU_RANKS_DEADLINE_S - (time.perf_counter() - t0)
+                outs.append(p.communicate(timeout=max(left, 1.0))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        runs.append({"argv": argv, "rc": [p.returncode for p in procs],
+                     "s": time.perf_counter() - t0,
+                     "first_lines": [o.splitlines()[:1] for o in outs]})
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"2-rank CPU {argv}: {runs[-1]} {outs[0][-2000:]} "
+                                 f"{outs[1][-2000:]}")
+    mods = cfg.signals.modulations_with_noise
+    for m in mods:
+        a, b = (io_mat.load_features(cfg.replace(paths={"root": str(r)}), m) for r in roots)
+        if not np.array_equal(a, b):
+            raise AssertionError(f"2-rank CPU: {m} differs between the ranks' roots")
+    ids = [sorted(p.stem for p in (r / "ann").glob("model-*.pt")) for r in roots]
+    if len(ids[0]) != 1 or ids[0] != ids[1]:
+        raise AssertionError(f"2-rank CPU: checkpoints {ids}")
+    seconds = time.perf_counter() - t0
+    if seconds > CPU_RANKS_DEADLINE_S:
+        raise AssertionError(f"2-rank CPU run took {seconds:.1f} s")
+    return {"ranks": 2, "backend": "gloo", "frames_per_block": 24, "runs": runs,
+            "seconds": seconds, "model_id": ids[0][0][len("model-"):]}
+
+
+def phase_multi_device(torch, dev, cfg, features, data, work, counts, zero_counts,
+                       paths) -> dict:
+    """Phase 14: a process group of one rank over NCCL on the card, driven
+    through the port's multi-device paths and held against the paths
+    without a group; then two gloo ranks of the command line on the CPU."""
+    import torch.distributed as dist
+
+    from amcpy_tpu_torch.extraction import run_extraction
+    from amcpy_tpu_torch.models.classifier import AMCClassifier
+    from amcpy_tpu_torch.models.layers import init_flax_defaults
+    from amcpy_tpu_torch.ops import features as F
+    from amcpy_tpu_torch.ops.fused import extract_features_fused
+    from amcpy_tpu_torch.parallel.audit import all_reduce, audit_collectives, collective_bytes
+    from amcpy_tpu_torch.parallel.mesh import data_shard, init_distributed, make_mesh
+    from amcpy_tpu_torch.parallel.sp import extract_features_sp
+    from amcpy_tpu_torch.preprocessing import Standardizer, preprocess
+    from amcpy_tpu_torch.serve import AMCPipeline
+    from amcpy_tpu_torch.train.training import (
+        HISTORY_KEYS,
+        make_optimizer,
+        predict_logits,
+        predict_logits_global,
+        train,
+        train_step,
+    )
+    from amcpy_tpu_torch.utils.device import no_tf32
+
+    x_tr, x_te, y_tr, y_te, _ = preprocess(features, cfg)
+    three = cfg.replace(training={"epochs": 3})
+    xb = torch.from_numpy(x_tr[:128]).to(dev)
+    yb = torch.from_numpy(y_tr[:128].astype(np.int64)).to(dev)
+
+    def step_split(model, shard) -> dict[str, float]:
+        """ms of one training step (dropout 0.4, batch 128) on a copy of
+        ``model`` each: the plain step; the data-parallel step; the same
+        with NCCL's all-reduce a no-op (the rest of the port's collective
+        wrappers still run); and with the BatchNorm sums and the gradient
+        bucket taken out too (what is left of the data-parallel path:
+        global-batch dropout, the loss over W). Each is the median of 40
+        steps in each of 8 interleaved rounds, then the median of the
+        rounds, so the host's drift hits all four alike."""
+        import amcpy_tpu_torch.models.layers as layers_mod
+        import amcpy_tpu_torch.train.training as training_mod
+
+        local = [(dist, "all_reduce", lambda *a, **k: None)]
+        variants = {"plain": (None, []), "dp": (shard, []),
+                    "dp_without_nccl": (shard, local),
+                    "dp_without_collectives": (shard, local + [
+                        (layers_mod, "all_reduce_autograd", lambda x, group: x),
+                        (training_mod, "_sum_gradients", lambda m, s: None)])}
+        runs = {}
+        for name, (s, _) in variants.items():
+            m = copy.deepcopy(model)
+            runs[name] = (m, make_optimizer(cfg, m.parameters()),
+                          torch.Generator(device=dev).manual_seed(0), s)
+
+        def median_step(name, n) -> float:
+            m, opt, gen, s = runs[name]
+            saved = [(o, a, getattr(o, a)) for o, a, _ in variants[name][1]]
+            try:
+                for o, a, v in variants[name][1]:
+                    setattr(o, a, v)
+                with no_tf32():
+                    return float(np.median([timed(torch, lambda: train_step(
+                        m, opt, xb, yb, gen, s)) for _ in range(n)]))
+            finally:
+                for o, a, v in saved:
+                    setattr(o, a, v)
+
+        for name in variants:
+            median_step(name, 5)
+        rounds = {name: [] for name in variants}
+        for _ in range(8):
+            for name in variants:
+                rounds[name].append(median_step(name, 40))
+        return {name: float(np.median(v)) for name, v in rounds.items()}
+
+    def extraction_root(name: str):
+        root = work / name
+        shutil.copytree(work / "cli" / "mat-data", root / "mat-data")
+        return cfg.replace(paths={"root": str(root)}, signals={"num_frames": 50})
+
+    # the paths without a group, for reference
+    t0 = time.perf_counter()
+    plain_model, _, plain_hist, _ = train(three, x_tr, y_tr, x_te, y_te, device=dev, seed=3)
+    plain_train_s = time.perf_counter() - t0
+    probe = AMCClassifier(6, tuple(cfg.training.hidden_sizes), in_features=x_tr.shape[1])
+    init_flax_defaults(probe, torch.Generator().manual_seed(0))
+    probe.to(dev)
+    plain_cfg = extraction_root("md_plain")
+    plain_feats = run_extraction(plain_cfg, device=dev)
+
+    store = work / "nccl_store"
+    if not init_distributed(f"file://{store}", 1, 0, device=dev):
+        raise AssertionError("init_distributed did not bring up the group")
+    try:
+        backend = dist.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"the group's backend is {backend}, not nccl")
+        shard = data_shard(make_mesh())
+
+        # data-parallel training, held against the plain run of one seed
+        t0 = time.perf_counter()
+        with audit_collectives() as train_audit:
+            dp_model, _, dp_hist, _ = train(three, x_tr, y_tr, x_te, y_te, device=dev, seed=3)
+        dp_train_s = time.perf_counter() - t0
+        hist_gap = max(abs(a - b) for k in HISTORY_KEYS for a, b in zip(dp_hist[k], plain_hist[k]))
+        state_gap = 0.0
+        for k, v in plain_model.state_dict().items():
+            if k.endswith("num_batches_tracked") or data_free(k):
+                continue
+            w = dp_model.state_dict()[k]
+            state_gap = max(state_gap, float((w - v).abs().max()) / max(float(v.abs().max()),
+                                                                          1e-30))
+        one = copy.deepcopy(probe)
+        with no_tf32(), audit_collectives() as step_audit:
+            train_step(one, make_optimizer(cfg, one.parameters()), xb, yb,
+                       torch.Generator(device=dev).manual_seed(0), shard)
+        split_ms = step_split(probe, shard)
+        # one all-reduce of the step's gradient bucket alone, host and
+        # card; and its host time alone, 200 issued back to back
+        bucket = torch.ones(sum(p.numel() for p in probe.parameters()), device=dev)
+        allreduce_ms = sorted(timed(torch, lambda: all_reduce(bucket, "sum"))
+                              for _ in range(50))[25]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            all_reduce(bucket, "sum")
+        allreduce_issue_ms = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        if hist_gap > 1e-5 or state_gap > 1e-5:
+            raise AssertionError(f"DP training off the plain run: history {hist_gap}, "
+                                 f"weights {state_gap}")
+
+        # evaluation over the group
+        x_eval = np.asarray(x_te, np.float32)
+        spread = predict_logits_global(dp_model, x_eval, device=dev)
+        with no_tf32():
+            whole = predict_logits(dp_model, torch.from_numpy(x_eval).to(dev))
+        eval_gap = float((spread - whole).abs().max())
+        if eval_gap > 1e-6 or spread.shape != whole.shape:
+            raise AssertionError(f"predict_logits_global off predict_logits by {eval_gap}")
+
+        # round-robin extraction through the group, through K1
+        group_cfg = extraction_root("md_group")
+        zero_counts()
+        with audit_collectives() as extract_audit:
+            group_feats = run_extraction(group_cfg, device=dev)
+        paths["multi_device_extraction"] = ("fused", counts())
+        launched = paths["multi_device_extraction"][1]["fused"]
+        identical = all(np.array_equal(group_feats[m], plain_feats[m]) for m in plain_feats)
+        if launched != 6 or not identical or set(extract_audit) != {"collective-broadcast"}:
+            raise AssertionError(f"round-robin extraction: {launched} K1 launches, artifacts "
+                                 f"identical {identical}, collectives {extract_audit}")
+
+        # sequence-parallel extraction on the (1, 1) mesh at 4096 x 2048
+        frames = test_frames(4096, 2048, seed=41)
+        i = torch.from_numpy(np.ascontiguousarray(frames.real)).to(dev)
+        q = torch.from_numpy(np.ascontiguousarray(frames.imag)).to(dev)
+        mesh11 = make_mesh(shape=(1, 1))
+        with audit_collectives() as sp_audit:
+            got = extract_features_sp(i, q, mesh11)
+        with no_tf32():
+            want = F._extract_planar(i, q, normalize_scale=True, compute_gmax=True,
+                                     gmax_mode="matmul")
+        sp_err, sp_ratio = compare(got, want, frames)
+        if sp_ratio > 1.0:
+            raise AssertionError(f"SP off the plain extractor: {sp_ratio} of the bar")
+        inputs = rotated(i, q)
+        sp_ms = cuda_ms(lambda a, b: extract_features_sp(a, b, mesh11), inputs, 20)
+        k1_ms = cuda_ms(extract_features_fused, inputs, 20)
+
+        # the serving fan-out's decision for a rank of the group, which
+        # keeps to its own card
+        k = x_tr.shape[1]
+        pipe = AMCPipeline(AMCClassifier(6, in_features=k),
+                           Standardizer(np.zeros(k, np.float32), np.ones(k, np.float32)), cfg,
+                           device=dev)
+        if pipe.devices != [pipe.device]:
+            raise AssertionError(f"a rank's pipeline fans out over {pipe.devices}")
+        plan = pipe.fanout(4096)
+        fanout = {"devices": [str(d) for d in pipe.devices], "frames": 4096,
+                  "plan": None if plan is None else [(str(d), lo, hi) for d, lo, hi in plan],
+                  "decision": ("one device, no fan-out" if plan is None
+                               else f"fan-out over {len(plan)} devices")}
+    finally:
+        dist.destroy_process_group()
+
+    return {"phase": "multi_device", "backend": backend, "world": 1,
+            "training": {"epochs": 3, "history_max_gap": hist_gap,
+                         "weights_max_rel_gap": state_gap, "tolerance": 1e-5,
+                         "plain_s": plain_train_s, "dp_s": dp_train_s,
+                         "plain_step_ms": split_ms["plain"], "dp_step_ms": split_ms["dp"],
+                         "step_split_ms": split_ms,
+                         "bucket_allreduce_ms": allreduce_ms,
+                         "allreduce_issue_ms": allreduce_issue_ms,
+                         "step_collectives": step_audit,
+                         "step_bytes": collective_bytes(step_audit),
+                         "run_collectives": train_audit},
+            "evaluation": {"rows": len(x_eval), "max_abs_gap": eval_gap},
+            "extraction": {"frames_per_block": 50, "k1_launches": launched,
+                           "artifacts_identical": identical, "collectives": extract_audit},
+            "sp": {"mesh": [1, 1], "frames": 4096, "frame_size": 2048,
+                   "max_abs_err": sp_err, "max_err_over_tol": sp_ratio,
+                   "collectives": sp_audit, "ms": sp_ms, "k1_ms": k1_ms},
+            "fanout": fanout,
+            "cpu_two_ranks": cpu_two_ranks(cfg, data, work, Path(__file__).resolve().parent)}
+
+
 def timed(torch, fn) -> float:
     """ms of ``fn()`` between two synchronizations of the card."""
     torch.cuda.synchronize()
@@ -1886,6 +2181,10 @@ def main() -> int:
 
         # ---- phase 13: frames drawn on the card and fed to K1, path 16 -------
         emit(phase_synthetic(torch, dev, cfg, work, counts, zero_counts, paths))
+
+        # ---- phase 14: multi-device, NCCL in a world of one, path 17 -------
+        emit(phase_multi_device(torch, dev, cfg, results, data, work, counts, zero_counts,
+                                paths))
 
         for path, (key, c) in paths.items():
             if c[key] == 0 or c["reroutes"]:

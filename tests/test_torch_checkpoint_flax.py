@@ -229,7 +229,7 @@ def test_resume_from_msgpack_matches_jax(tmp_path, no_msgpack):
     assert meta["epoch"] == 2 and state.step == int(jstate2.step)
     model.train()
     opt = make_optimizer(Config(), model.parameters(), state.opt_state)
-    history = _port_epochs(model, opt, data, _jax_orders(5, 1000, 896, 3)[2:])
+    history = _port_epochs(model, opt, data, [o[0] for o in _jax_orders(5, 1000, 896, 3)[2:]])
     _assert_runs_agree(model, jmodel, jstate3, history,
                        {k: v[2:] for k, v in jhistory3.items()}, data[2])
 

@@ -636,3 +636,90 @@ def test_synthetic_extraction_launches_k1_once_a_chunk(cuda, tmp_path, monkeypat
         want = F.extract_features_planar(torch.from_numpy(F.to_planar(frames)).to(cuda))
         _assert_within(feats.reshape(-1, 18), want.cpu().double().numpy(), frames, 2e-4, 2e-5)
         _assert_within(feats.reshape(-1, 18), host[mod].reshape(-1, 18), frames, 2e-4, 2e-5)
+
+
+@pytest.fixture
+def nccl_world(cuda, tmp_path, monkeypatch):
+    """A process group of one rank over NCCL on the card (a ``file://``
+    store), torn down after the test: two ranks cannot share one card."""
+    import torch.distributed as dist
+
+    from amcpy_tpu_torch.parallel.mesh import init_distributed
+
+    for key in ("AMCPY_COORDINATOR", "AMCPY_NUM_PROCESSES", "AMCPY_PROCESS_ID", "WORLD_SIZE",
+                "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    assert init_distributed(f"file://{tmp_path}/store", 1, 0, device="cuda")
+    assert dist.get_backend() == "nccl"
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dp_step_in_a_nccl_world_matches_the_plain_step(nccl_world, cuda):
+    """One RMSprop step of the default MLP (dropout 0.4, its mask drawn
+    from one seeded card generator) through the data-parallel path of a
+    world of one, against the plain step: the loss and every tensor within
+    1e-5 of its largest value (the same operations plus a sum over one
+    rank), through seven all-reduces (three BatchNorm sums forward, three
+    backward, the gradients)."""
+    import copy
+
+    from amcpy_tpu_torch.models.classifier import AMCClassifier
+    from amcpy_tpu_torch.parallel.audit import audit_collectives
+    from amcpy_tpu_torch.parallel.mesh import data_shard, make_mesh
+    from amcpy_tpu_torch.train.training import make_optimizer, train_step
+    from amcpy_tpu_torch.utils.device import no_tf32
+
+    torch.manual_seed(4)
+    model = AMCClassifier(6).to(cuda)
+    x = (torch.randn(128, 6) * 1.5).to(cuda)
+    y = torch.randint(0, 6, (128,)).to(cuda)
+    shard = data_shard(make_mesh())
+    runs = []
+    for s in (None, shard):
+        m = copy.deepcopy(model)
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        with no_tf32(), audit_collectives() as audit:
+            loss, _ = train_step(m, make_optimizer(Config(), m.parameters()), x, y, gen, s)
+        runs.append((float(loss), {k: v.cpu() for k, v in m.state_dict().items()}, audit))
+    assert runs[0][2] == {} and runs[1][2]["all-reduce"]["count"] == 7
+    _assert_steps_agree(runs[1][:2], runs[0][:2], 1e-5, 1e-5)
+
+
+def test_pipeline_in_a_nccl_world_keeps_to_its_card(nccl_world, cuda, monkeypatch):
+    """With two cards visible (the count faked), a pipeline outside a group
+    fans out over both, and one built by a rank of a group keeps to its
+    own card."""
+    import torch.distributed as dist
+
+    from amcpy_tpu_torch.models.classifier import AMCClassifier
+    from amcpy_tpu_torch.preprocessing import Standardizer
+    from amcpy_tpu_torch.serve import AMCPipeline
+
+    scaler = Standardizer(np.zeros(6, np.float32), np.ones(6, np.float32))
+    # undone before the fixture tears the group down
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "device_count", lambda: 2)
+        pipe = AMCPipeline(AMCClassifier(6, in_features=6), scaler, Config(), device=cuda)
+        assert pipe.devices == [pipe.device] and pipe.fanout(4096) is None
+        m.setattr(dist, "is_initialized", lambda: False)
+        alone = AMCPipeline(pipe.model, scaler, Config(), device=cuda)
+        assert alone.devices == [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+@pytest.mark.parametrize("mode", ["matmul", "fft"])
+def test_sp_in_a_nccl_world_matches_plain(nccl_world, cuda, mode):
+    """``extract_features_sp`` on the (1, 1) mesh at 4096 x 2048 on the
+    card against the plain extractor: ``2e-4 * term_scales + 2e-5 *
+    |want|``."""
+    from amcpy_tpu_torch.parallel.mesh import make_mesh
+    from amcpy_tpu_torch.parallel.sp import extract_features_sp
+
+    x = _frames(4096, 2048, seed=21)
+    i, q = _planes(x, cuda)
+    got = extract_features_sp(i, q, make_mesh(shape=(1, 1)), gmax_mode=mode)
+    assert got.device == i.device
+    want = F._extract_planar(i, q, normalize_scale=True, compute_gmax=True, gmax_mode=mode)
+    _assert_within(got.cpu().numpy(), want.cpu().numpy(), x, 2e-4, 2e-5)

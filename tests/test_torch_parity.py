@@ -199,7 +199,7 @@ def test_paired_seed_accuracy_gate(tmp_path):
         tensors = [torch.from_numpy(np.asarray(a)) for a in (x_tr, y_tr, x_te, y_te)]
         for order in _jax_orders(seed, n, take, cfg.training.epochs):
             run_epoch(model, opt, tensors[0], tensors[1].long(), tensors[2],
-                      tensors[3].long(), torch.from_numpy(order), batch)
+                      tensors[3].long(), torch.from_numpy(order[0]), batch)
         ours.append(evaluate_by_snr(model, scaler, feats, cfg, device="cpu"))
     stats = parity.paired_accuracy_stats(np.stack(ours), np.stack(theirs))
     assert stats == jax_paired_accuracy_stats(np.stack(ours), np.stack(theirs))

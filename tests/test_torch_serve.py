@@ -236,3 +236,49 @@ def test_standardizer_matches_jax():
     again = Standardizer.from_dict(mine.to_dict())
     np.testing.assert_allclose(again.mean, mine.mean, rtol=1e-7)
     assert Standardizer.fit(torch.from_numpy(x)).std.dtype == np.float32
+
+
+@pytest.mark.parametrize("family", ["mlp", "cnn"])
+def test_fanout_over_devices(tmp_path, family):
+    """``devices=["cpu", "cpu:0"]``, two devices of which the second is not
+    the pipeline's own: a request of 128 frames splits at the
+    ``np.linspace`` bounds into two chunks of 64 (the JAX package's
+    ``b >= len(devices) * 64``); the first runs on the pipeline, the second
+    on the copy built for ``cpu:0`` (its own weights, equal to the
+    pipeline's), and the whole equals the request on one device within
+    1e-6; one of 64 frames runs whole. Both families, as
+    ``serve.py:296-326``."""
+    from amcpy_tpu_torch.models.cnn import IQConvNet
+    from amcpy_tpu_torch.models.layers import init_flax_defaults
+
+    if family == "mlp":
+        one = _pipelines(tmp_path, "relu")[1]
+    else:
+        cnn = IQConvNet(6)
+        init_flax_defaults(cnn, torch.Generator().manual_seed(0))
+        identity = Standardizer(np.zeros(1, np.float32), np.ones(1, np.float32))
+        one = AMCPipeline(cnn, identity, Config().replace(signals={"frame_size": N}),
+                          device="cpu")
+    assert one.devices == [torch.device("cpu")] and one.fanout(4096) is None
+    cpu, other = torch.device("cpu"), torch.device("cpu", 0)
+    fan = AMCPipeline(one.model, one.scaler, one.cfg, device="cpu", devices=["cpu", other])
+    assert fan.fanout(64) is None and fan.fanout(127) is None
+    assert fan.fanout(128) == [(cpu, 0, 64), (other, 64, 128)]
+    assert fan.fanout(131) == [(cpu, 0, 65), (other, 65, 131)]
+    frames = _frames(128, seed=9)
+    whole = one.logits(frames)
+    got = fan.logits(frames)
+    assert got.shape == (128, 6) and got.device == cpu
+    torch.testing.assert_close(got, whole, rtol=0, atol=1e-6)
+    # the second chunk ran on a copy made for ``other``, not on the pipeline
+    assert list(fan._replicas) == [other]
+    copy_ = fan._replicas[other]
+    assert copy_.device == other and copy_.devices == [other] and copy_.model is not fan.model
+    for (k, a), b in zip(copy_.model.state_dict().items(), fan.model.state_dict().values()):
+        assert a is not b
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
+    torch.testing.assert_close(copy_.logits(frames[64:]), whole[64:], rtol=0, atol=1e-6)
+    assert fan._consts_on(other) is copy_ and fan._consts_on(cpu) is fan
+    torch.testing.assert_close(fan.logits(frames[:64]), one.logits(frames[:64]), rtol=0, atol=0)
+    pinned = AMCPipeline(one.model, one.scaler, one.cfg, device="cpu", devices=["cpu"])
+    assert pinned.fanout(128) is None

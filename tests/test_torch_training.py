@@ -212,17 +212,18 @@ def _features_dataset(seed=0):
     return x[:1000], y[:1000], x[1000:], y[1000:]
 
 
-def _jax_orders(seed, n, take, epochs):
-    """Each epoch's row order as JAX's ``train`` draws it on one shard
-    (key chain of ``training.py:245-246``, ``:320``, ``:138-158``)."""
+def _jax_orders(seed, n, take, epochs, n_shards=1):
+    """Each epoch's row orders as JAX's ``train`` draws them over
+    ``n_shards`` data shards of ``n`` rows, ``(n_shards, take)`` local row
+    indices (key chain of ``training.py:245-246``, ``:320``, ``:138-158``)."""
     _, run_key = jax.random.split(jax.random.key(seed))
     orders = []
     for _ in range(epochs):
         run_key, ep_key = jax.random.split(run_key)
         perm_key, _ = jax.random.split(ep_key)
-        perm = jax.vmap(lambda k: jax.random.permutation(k, n))(
-            jax.random.split(perm_key, 1))[0]
-        orders.append(np.asarray(perm)[np.arange(take) % n])
+        perms = jax.vmap(lambda k: jax.random.permutation(k, n))(
+            jax.random.split(perm_key, n_shards))
+        orders.append(np.asarray(perms)[:, np.arange(take) % n])
     return orders
 
 
@@ -279,7 +280,7 @@ def test_whole_run_matches_jax():
     model = AMCClassifier(6, HIDDEN, dropout=0.0)
     model.load_state_dict(params_from_flax(_np(init["params"]), _np(init["batch_stats"])))
     opt = make_optimizer(Config(), model.parameters())
-    history = _port_epochs(model, opt, data, _jax_orders(5, 1000, 896, 3))
+    history = _port_epochs(model, opt, data, [o[0] for o in _jax_orders(5, 1000, 896, 3)])
     _assert_runs_agree(model, jmodel, jstate, history, jhistory, data[2])
 
 
@@ -295,7 +296,7 @@ def test_resume_from_jax_matches_jax():
     model.load_state_dict(params_from_flax(_np(jstate2.params), _np(jstate2.batch_stats)))
     opt = make_optimizer(Config(), model.parameters(),
                          opt_state_from_optax("rmsprop", _np(jstate2.opt_state), model))
-    history = _port_epochs(model, opt, data, _jax_orders(5, 1000, 896, 3)[2:])
+    history = _port_epochs(model, opt, data, [o[0] for o in _jax_orders(5, 1000, 896, 3)[2:]])
     _assert_runs_agree(model, jmodel, jstate3, history,
                        {k: v[2:] for k, v in jhistory3.items()}, data[2])
 
