@@ -7,23 +7,28 @@
 //    amcpy_tpu/ops/fused.py::_fused_kernel_entry (the same statistics plus
 //    gamma_max = max|DFT|^2 / N of the N1 x N2 factorization).
 //
-// Both give one thread block of 256 threads to one frame and share
-// frame_stats(), which reads the frame from device memory once, keeps it
-// (and its phase) in shared memory and computes the statistics in three
-// passes.
+// K1 gives one thread block of 256 threads to one frame: frame_stats()
+// reads the frame from device memory once, keeps it (and its phase) in
+// shared memory and computes the statistics in three passes. K2 has two
+// routes, chosen by N alone (amc_stats_path): frames of N <= 2048 go to
+// stats_wg_kernel, one warpgroup a frame with the frame in registers and
+// the warpgroup's own named barriers; longer frames to stats_kernel, one
+// block a frame through frame_stats.
 //
 // What bounds them on an H100:
 //  * K2 reads 8*N bytes per frame once and does ~80 operations per sample:
-//    the bytes bind (0.020 ms at 4096 x 2048), but a block is bound by its
-//    instructions and its three passes separated by block reductions. So
-//    every instruction counts: a frame of N <= 2048 keeps each sample's
-//    normalized amplitude and wrapped frequency in registers (computed
-//    once, not once per pass); the wrap is one conditional step of 2pi and
-//    the phase a branch-free polynomial (no library call with a division
-//    and slow paths); max|x| rides in the first reduction; the reductions
-//    reduce-scatter across lanes, take one barrier each and broadcast only
-//    what the next pass needs; four blocks share a SM (kMinBlocks). The
-//    kurtosis is still taken from centred sums, as in the plain version.
+//    the bytes bind (0.020 ms at 4096 x 2048), but a frame is bound by its
+//    instructions and by the chain of its three passes, each ended by a
+//    reduction. So every instruction counts: the warpgroup route keeps each
+//    sample's I, Q, amplitude and phase in registers from one 16-byte load
+//    per 4 samples to the end of pass 2 (no shared-memory copy of the
+//    frame), waits on barriers of 128 threads, not of a block, and spreads
+//    the features over warp 0's lanes; the wrap is one conditional step of
+//    2pi and the phase a branch-free polynomial (no library call with a
+//    division and slow paths); max|x| rides in the first reduction; the
+//    reductions reduce-scatter across lanes, take one barrier each and
+//    broadcast only what the next pass needs. The kurtosis is still taken
+//    from centred sums, as in the plain version.
 //  * K1 adds gamma_max. Where N2 is a power of two (every power-of-two N,
 //    e.g. 2048 = 8 x 256, 16384 = 32 x 512) it is an in-place
 //    decimation-in-frequency FFT in shared memory, after the statistics have
@@ -51,8 +56,9 @@
 //    t = d + pi lies in [-pi, 3pi] and one conditional step of 2pi is the
 //    floor-mod that fmodf plus a sign fix would give: t - 2pi is exact
 //    (Sterbenz), t + 2pi the same rounded addition;
-//  * the next-sample phase is read from shared memory (phase[k+1] for
-//    k < N-1): the statistics of the phase difference run over N-1 values;
+//  * the next-sample phase is phase[k+1] for k < N-1 (shared memory in
+//    frame_stats, a register, shuffle or shared slot in stats_wg_kernel):
+//    the statistics of the phase difference run over N-1 values;
 //  * the phase (phase_of) follows np.angle / torch.atan2 on signed zero
 //    (atan2(-0.0, -1) = -pi) and is exactly +-pi on the negative real axis,
 //    unlike the Pallas kernels' own _atan2; elsewhere it is within ~1e-7
@@ -63,7 +69,8 @@
 //  * every DFT weight and twiddle comes from the host (float64 rounded to
 //    float32), not from __sinf/__cosf; the butterflies' own constants are
 //    +-1, +-i and sqrt(1/2);
-//  * a ragged batch needs no padding: one block per frame.
+//  * a ragged batch needs no padding: one block (K2's warpgroup route: one
+//    warpgroup) per frame.
 //
 // Every entry point launches on the stream it is given, allocates
 // nothing, and returns cudaGetLastError() (0 on success).
@@ -71,6 +78,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -144,14 +152,15 @@ __device__ __forceinline__ void scatter_steps(float (&a)[P], int lane) {
 //  * One barrier: callers alternate between the two halves of the
 //    reduction scratch, so a buffer is only written again after a later
 //    reduction's barrier.
-template <int V, bool kLastIsMax = false>
-__device__ __forceinline__ float block_reduce(const float (&v)[V],
-                                              float* red) {
+// The warp's part of a reduction of V <= 32 per-thread values (sums, and
+// with kLastIsMax a maximum as the last value): lane j returns the warp's
+// total j (j < V).
+template <int V, bool kLastIsMax>
+__device__ __forceinline__ float warp_totals(const float (&v)[V], int lane) {
   static_assert(V <= 32, "one value per lane");
   constexpr int S = kLastIsMax ? V - 1 : V;  // the sums
   constexpr int P = S <= 1 ? 1 : S <= 2 ? 2 : S <= 4 ? 4 : S <= 8 ? 8
                   : S <= 16 ? 16 : 32;
-  const int lane = threadIdx.x & 31;
   float a[P];
 #pragma unroll
   for (int i = 0; i < P; ++i) a[i] = i < S ? v[i] : 0.f;
@@ -169,6 +178,14 @@ __device__ __forceinline__ float block_reduce(const float (&v)[V],
     }
     if (lane == V - 1) t = m;  // lane V - 1 = S is not needed for a sum
   }
+  return t;
+}
+
+template <int V, bool kLastIsMax = false>
+__device__ __forceinline__ float block_reduce(const float (&v)[V],
+                                              float* red) {
+  const int lane = threadIdx.x & 31;
+  const float t = warp_totals<V, kLastIsMax>(v, lane);
   if (lane < V) red[(threadIdx.x >> 5) * V + lane] = t;
   __syncthreads();
   float r = 0.f;
@@ -493,8 +510,8 @@ __device__ void frame_stats(const float* __restrict__ gi,
 // path.
 constexpr int kMinBlocks = 4;
 
-// K2: one block per frame of the packed (B, 2, N) input.
-template <int kPer>
+// K2's block route (frames longer than kWgMaxN): one block per frame of the
+// packed (B, 2, N) input, the samples recomputed in each pass.
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     stats_kernel(const float* __restrict__ iq, float* __restrict__ out, int n,
                  int normalize) {
@@ -502,9 +519,400 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const float* src = iq + static_cast<size_t>(blockIdx.x) * 2 * n;
   float* row = out + static_cast<size_t>(blockIdx.x) * kNumFeatures;
   const int np = plane_floats(n);
-  frame_stats<kPer>(src, src + n, smem, smem + np, smem + 2 * np,
-                    smem + 2 * np + n, n, normalize != 0, row);
+  frame_stats<0>(src, src + n, smem, smem + np, smem + 2 * np,
+                 smem + 2 * np + n, n, normalize != 0, row);
   if (threadIdx.x == 0) row[0] = 0.f;
+}
+
+// ---- K2's warpgroup route: frames of 2 <= N <= kWgMaxN ----------------------
+//
+// One warpgroup (128 threads, 4 warps) owns one frame; a block holds
+// kWgFrames frames, one per warpgroup, and nothing in it waits on the whole
+// block. Thread t owns the 4-sample groups g = t + 128 j (j < 4), samples
+// 4g .. 4g+3, and keeps their I, Q, amplitude and phase in registers from
+// the load to the end of pass 2, which replaces the amplitude by the
+// normalized amplitude and adds the wrapped frequency for pass 3: no copy of
+// the frame goes to shared memory. Samples past N are zeros, which add
+// nothing to pass 1's sums; passes 2 and 3 skip them.
+//  * Loads: 16 bytes a group where N % 4 == 0 and the input is 16-byte
+//    aligned (then every frame's I and Q planes are), else one float a
+//    sample (kVec = false), in the same layout.
+//  * The next sample's phase: inside a group it is the thread's own; after a
+//    group's last sample it is thread t+1's group j, taken by a shuffle; for
+//    lane 31 it is the next warp's lane 0 (thread 127: thread 0's group
+//    j+1), through four floats a warp in shared memory that pass 1 writes and
+//    its barrier publishes.
+//  * Reductions: the reduce-scatter of block_reduce inside each warp, then
+//    four partials a value through the warpgroup's shared scratch behind a
+//    named barrier (bar.sync 1 + warpgroup, 128 threads). Two scratch buffers
+//    alternate, so each reduction takes one barrier. Pass 3's partials only
+//    warp 0 reads: warps 1-3 arrive (bar.arrive) and exit.
+//  * Means and moments are products by 1/N and 1/(N-1), which the host
+//    rounds once from double, and the two per-frame reciprocals (of mean|x|
+//    and max|x|) fast ones, all within the tolerance; divisions cost a
+//    branch and a slow path each.
+//  * The tail: warp 0's lanes compute the features between them. Every lane
+//    forms the same moments and cumulant parts; lane c then takes feature
+//    c's radicand from shared memory and does its one fast division, square
+//    root and scaling, and lanes 0-17 store the row at once (column 0 is 0).
+// Its arithmetic per sample is frame_stats' (phase_of, wrapped_freq, the
+// moments of x / max|x|, the centred sums), in three passes.
+
+constexpr int kWgThreads = 128;
+constexpr int kWgWarps = kWgThreads / 32;
+constexpr int kWgGroups = 4;                       // 4-sample groups a thread
+constexpr int kWgSamples = 4 * kWgGroups;          // samples a thread holds
+constexpr int kWgMaxN = kWgThreads * kWgSamples;   // 2048
+constexpr int kWgFrames = 2;                       // warpgroups (frames) a block
+// 24 warps a SM: at most 80 registers a thread. The frame's 64 floats and
+// pass 2's 19 sums want ~115, so ptxas spills ~130-150 bytes a thread (to
+// L1); on an H100 that still beats 16 warps without spills, and one frame a
+// block at 24 warps (scripts/k1_ablation.py, variants k2_16_warps and
+// k2_one_frame; the times are in PERF.md)
+constexpr int kWgMinBlocks = 3;
+
+// Shared memory of one warpgroup.
+struct WgScratch {
+  float red[2][kWgWarps * kRedValues];  // alternating reduction partials
+  float next[kWgWarps * kWgGroups];     // lane 0's first phase of each group
+};
+
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(kWgThreads) : "memory");
+}
+
+__device__ __forceinline__ void wg_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(kWgThreads) : "memory");
+}
+
+// Lane j (j < V) of a warp combines total j over the warpgroup's four
+// partials in red.
+template <int V, bool kLastIsMax = false>
+__device__ __forceinline__ float wg_combine(const float* red, int lane) {
+  float r = 0.f;
+  if (lane < V) {
+    const bool mx = kLastIsMax && lane == V - 1;
+    r = red[lane];
+#pragma unroll
+    for (int w = 1; w < kWgWarps; ++w) {
+      const float o = red[w * V + lane];
+      r = mx ? fmaxf(r, o) : r + o;
+    }
+  }
+  return r;
+}
+
+// Warpgroup reduction: lane j of every warp returns total j (j < V).
+template <int V, bool kLastIsMax = false>
+__device__ __forceinline__ float wg_reduce(const float (&v)[V], float* red,
+                                           int warp, int lane, int bar) {
+  const float t = warp_totals<V, kLastIsMax>(v, lane);
+  if (lane < V) red[warp * V + lane] = t;
+  wg_sync(bar);
+  return wg_combine<V, kLastIsMax>(red, lane);
+}
+
+// Lanes whose feature is a square root: f2-f5, f7, c20, c40, c41, c60-c63.
+constexpr unsigned kSqrtLanes = (1u << 1) | (1u << 2) | (1u << 3) | (1u << 4) |
+                                (1u << 6) | (1u << 9) | (1u << 11) |
+                                (1u << 12) | (1u << 14) | (1u << 15) |
+                                (1u << 16) | (1u << 17);
+
+template <bool kVec>
+__global__ void __launch_bounds__(kWgThreads * kWgFrames, kWgMinBlocks)
+    stats_wg_kernel(const float* __restrict__ iq, float* __restrict__ out,
+                    int b, int n, float rn, float rn1, int normalize) {
+  __shared__ WgScratch scratch[kWgFrames];
+  const int wg = threadIdx.x / kWgThreads;
+  const int frame = blockIdx.x * kWgFrames + wg;
+  if (frame >= b) return;  // a ragged last block
+  const int t = threadIdx.x % kWgThreads;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int bar = 1 + wg;  // barrier 0 is __syncthreads()'s
+  WgScratch& sc = scratch[wg];
+  const float* gi = iq + static_cast<size_t>(frame) * 2 * n;
+  const float* gq = gi + n;
+  const float fn1 = static_cast<float>(n - 1);
+
+  // the frame into registers: sample s = 4 j + e of the thread is
+  // k = 4 (t + 128 j) + e
+  float xi[kWgSamples];
+  float xq[kWgSamples];
+#pragma unroll
+  for (int j = 0; j < kWgGroups; ++j) {
+    const int k0 = 4 * (t + kWgThreads * j);
+    if constexpr (kVec) {
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 c = a;
+      if (k0 < n) {
+        a = __ldg(reinterpret_cast<const float4*>(gi + k0));
+        c = __ldg(reinterpret_cast<const float4*>(gq + k0));
+      }
+      xi[4 * j] = a.x;
+      xi[4 * j + 1] = a.y;
+      xi[4 * j + 2] = a.z;
+      xi[4 * j + 3] = a.w;
+      xq[4 * j] = c.x;
+      xq[4 * j + 1] = c.y;
+      xq[4 * j + 2] = c.z;
+      xq[4 * j + 3] = c.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool in = k0 + e < n;
+        xi[4 * j + e] = in ? __ldg(gi + k0 + e) : 0.f;
+        xq[4 * j + e] = in ? __ldg(gq + k0 + e) : 0.f;
+      }
+    }
+  }
+
+  // pass 1: amplitude, phase; sums for the means and max |x|
+  float am[kWgSamples];  // |x|; from pass 2 on: |x| / mean|x| - 1
+  float ph[kWgSamples];
+  float s1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int s = 0; s < kWgSamples; ++s) {
+    const float a = sqrtf(xi[s] * xi[s] + xq[s] * xq[s]);
+    const float p = phase_of(xq[s], xi[s]);
+    am[s] = a;
+    ph[s] = p;
+    s1[0] += a;
+    s1[1] += fabsf(p);
+    s1[2] += p;
+    s1[3] = fmaxf(s1[3], a);
+  }
+  // the phase after each group's last sample
+  float nx[kWgGroups];
+#pragma unroll
+  for (int j = 0; j < kWgGroups; ++j) {
+    nx[j] = __shfl_down_sync(0xffffffffu, ph[4 * j], 1);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < kWgGroups; ++j) sc.next[warp * kWgGroups + j] = ph[4 * j];
+  }
+  // its barrier also publishes sc.next
+  const float t1 = wg_reduce<4, true>(s1, sc.red[0], warp, lane, bar);
+  if (lane == 31) {
+#pragma unroll
+    for (int j = 0; j < kWgGroups; ++j) {
+      if (warp + 1 < kWgWarps) {
+        nx[j] = sc.next[(warp + 1) * kWgGroups + j];
+      } else if (j + 1 < kWgGroups) {
+        nx[j] = sc.next[j + 1];  // thread 127: thread 0's next group
+      }
+    }
+  }
+  // lane j scales total j: the means of |x|, |phase| and phase
+  const float m1 = t1 * rn;
+  const float sum_a = lane_value(t1, 0);
+  const float mean_a = lane_value(m1, 0);
+  const float mean_ap = lane_value(m1, 1);
+  const float mean_p = lane_value(m1, 2);
+  const float amax = lane_value(t1, 3);
+  const float s = (normalize && amax > 0.f) ? amax : 1.f;
+  const float rec = __fdividef(1.f, lane == 0 ? mean_a : s);
+  const float inv_mean_a = lane_value(rec, 0);
+  const float inv = lane_value(rec, 1);
+  const float inv2 = inv * inv;
+
+  // pass 2: centred sums of the phases, sums of |cn|, cn, freq, and the
+  // 14 real parts of the nine mixed moments of x / s
+  float v[kRedValues];
+#pragma unroll
+  for (int j = 0; j < kRedValues; ++j) v[j] = 0.f;
+  float fr[kWgSamples];  // wrapped frequency of the step k -> k+1
+#pragma unroll
+  for (int j = 0; j < kWgGroups; ++j) {
+    const int k0 = 4 * (t + kWgThreads * j);
+    if (k0 >= n) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int sm = 4 * j + e;
+      const int k = k0 + e;
+      fr[sm] = 0.f;
+      if (!kVec && k >= n) continue;
+      const float i = xi[sm];
+      const float q = xq[sm];
+      const float a2r = i * i + q * q;
+      const float a = am[sm];
+      const float p = ph[sm];
+      const float dap = fabsf(p) - mean_ap;
+      v[0] += dap * dap;
+      const float dp = p - mean_p;
+      v[1] += dp * dp;
+      const float cn = a * inv_mean_a - 1.f;
+      v[2] += fabsf(cn);
+      v[3] += cn;
+      am[sm] = cn;
+      if ((kVec && e < 3) || k + 1 < n) {
+        const float f = wrapped_freq((e < 3 ? ph[sm + 1] : nx[j]) - p);
+        v[4] += f;
+        fr[sm] = f;
+      }
+      const float iu = i * inv;
+      const float qu = q * inv;
+      const float a2 = a2r * inv2;
+      const float x2r = iu * iu - qu * qu;
+      const float x2i = 2.f * iu * qu;
+      const float x4r = x2r * x2r - x2i * x2i;
+      const float x4i = 2.f * x2r * x2i;
+      const float x6r = x4r * x2r - x4i * x2i;
+      const float x6i = x4r * x2i + x4i * x2r;
+      const float a4 = a2 * a2;
+      v[5] += x2r;
+      v[6] += x2i;
+      v[7] += a2;
+      v[8] += x4r;
+      v[9] += x4i;
+      v[10] += x2r * a2;
+      v[11] += x2i * a2;
+      v[12] += a4;
+      v[13] += x6r;
+      v[14] += x6i;
+      v[15] += x4r * a2;
+      v[16] += x4i * a2;
+      v[17] += x2r * a4;
+      v[18] += a2 * a4;
+    }
+  }
+  const float t2 = wg_reduce<kRedValues>(v, sc.red[1], warp, lane, bar);
+  // lane j scales total j: mean |cn| (2), mean cn (3), mean freq (4)
+  const float m2 = t2 * (lane == 4 ? rn1 : rn);
+  const float mean_acn = lane_value(m2, 2);
+  const float mean_cn = lane_value(m2, 3);
+  const float f_mu = lane_value(m2, 4);
+
+  // pass 3: centred second and fourth powers (std of |cn|, kurtosis of cn
+  // and of the instantaneous frequency)
+  float u[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kWgGroups; ++j) {
+    const int k0 = 4 * (t + kWgThreads * j);
+    if (k0 >= n) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int sm = 4 * j + e;
+      const int k = k0 + e;
+      if (!kVec && k >= n) continue;
+      const float cn = am[sm];
+      const float da = fabsf(cn) - mean_acn;
+      u[0] += da * da;
+      const float c = cn - mean_cn;
+      const float c2 = c * c;
+      u[1] += c2;
+      u[2] += c2 * c2;
+      if ((kVec && e < 3) || k + 1 < n) {
+        const float fc = fr[sm] - f_mu;
+        const float fc2 = fc * fc;
+        u[3] += fc2;
+        u[4] += fc2 * fc2;
+      }
+    }
+  }
+  // only warp 0 reads pass 3's partials: the other warps arrive and leave.
+  // The first buffer's last readers (pass 1) passed pass 2's barrier.
+  {
+    const float tp = warp_totals<5, false>(u, lane);
+    if (lane < 5) sc.red[0][warp * 5 + lane] = tp;
+  }
+  if (warp != 0) {
+    wg_arrive(bar);
+    return;
+  }
+  wg_sync(bar);
+  const float t3 = wg_combine<5>(sc.red[0], lane);
+
+  // the tail, in warp 0: every lane forms the moments from the totals
+#pragma unroll
+  for (int j = 0; j < kRedValues; ++j) v[j] = lane_value(t2, j);
+#pragma unroll
+  for (int j = 0; j < 5; ++j) u[j] = lane_value(t3, j);
+  const float f_m2 = u[3] * rn1;
+  const float cn_m2 = u[1] * rn;
+  const float m20r = v[5] * rn, m20i = v[6] * rn, m21 = v[7] * rn;
+  const float m40r = v[8] * rn, m40i = v[9] * rn;
+  const float m41r = v[10] * rn, m41i = v[11] * rn, m42 = v[12] * rn;
+  const float m60r = v[13] * rn, m60i = v[14] * rn;
+  const float m61r = v[15] * rn, m61i = v[16] * rn;
+  const float m62 = v[17] * rn, m63 = v[18] * rn;
+
+  // cumulants in explicit (re, im) arithmetic, as frame_stats; each is
+  // |z| = sqrt(re^2 + im^2) or |x|, before its scale s^2 / s^4 / s^6
+  const float m20sq_r = m20r * m20r - m20i * m20i;
+  const float m20sq_i = 2.f * m20r * m20i;
+  const float c40r = m40r - 3.f * m20sq_r, c40i = m40i - 3.f * m20sq_i;
+  const float c41r = m41r - 3.f * m20r * m21, c41i = m41i - 3.f * m20i * m21;
+  const float c42 = m42 - (m20r * m20r + m20i * m20i) - 2.f * m21 * m21;
+  const float m20cu_r = m20sq_r * m20r - m20sq_i * m20i;
+  const float m20cu_i = m20sq_r * m20i + m20sq_i * m20r;
+  const float m2040_r = m20r * m40r - m20i * m40i;
+  const float m2040_i = m20r * m40i + m20i * m40r;
+  const float c60r = m60r - 15.f * m2040_r + 3.f * m20cu_r;
+  const float c60i = m60i - 15.f * m2040_i + 3.f * m20cu_i;
+  const float m2041_r = m20r * m41r - m20i * m41i;
+  const float m2041_i = m20r * m41i + m20i * m41r;
+  const float c61r =
+      m61r - 5.f * m21 * m40r - 10.f * m2041_r + 30.f * m20sq_r * m21;
+  const float c61i =
+      m61i - 5.f * m21 * m40i - 10.f * m2041_i + 30.f * m20sq_i * m21;
+  const float m2240_r = m20r * m40r + m20i * m40i;
+  const float m2240_i = m20r * m40i - m20i * m40r;
+  const float m20sq_m22_r = m20sq_r * m20r + m20sq_i * m20i;
+  const float m20sq_m22_i = -m20sq_r * m20i + m20sq_i * m20r;
+  const float c62r = m62 - 6.f * m20r * m42 - 8.f * m21 * m41r - m2240_r +
+                     6.f * m20sq_m22_r + 24.f * m21 * m21 * m20r;
+  const float c62i = -6.f * m20i * m42 - 8.f * m21 * m41i - m2240_i +
+                     6.f * m20sq_m22_i + 24.f * m21 * m21 * m20i;
+  const float m2043_r = m20r * m41r + m20i * m41i;
+  const float m2043_i = -m20r * m41i + m20i * m41r;
+  const float m2241_r = m20r * m41r + m20i * m41i;
+  const float m2241_i = m20r * m41i - m20i * m41r;
+  const float m20_abs2 = m20r * m20r + m20i * m20i;
+  const float c63r = m63 - 9.f * m21 * m42 + 12.f * m21 * m21 * m21 -
+                     3.f * m2043_r - 3.f * m2241_r + 18.f * m21 * m20_abs2;
+  const float c63i = -3.f * m2043_i - 3.f * m2241_i;
+
+  // feature c's numerator for lane c, through the second buffer (its last
+  // readers, pass 2's, passed pass 3's barrier)
+  float* num = sc.red[1];
+  if (lane == 0) {
+    num[0] = 0.f;
+    num[1] = v[0];
+    num[2] = v[1];
+    num[3] = u[0];
+    num[4] = f_m2 * fn1;
+    num[5] = mean_a;
+    num[6] = sum_a;
+    num[7] = u[2] * rn;
+    num[8] = u[4] * rn1;
+    num[9] = m20r * m20r + m20i * m20i;
+    num[10] = fabsf(m21);
+    num[11] = c40r * c40r + c40i * c40i;
+    num[12] = c41r * c41r + c41i * c41i;
+    num[13] = fabsf(c42);
+    num[14] = c60r * c60r + c60i * c60i;
+    num[15] = c61r * c61r + c61i * c61i;
+    num[16] = c62r * c62r + c62i * c62i;
+    num[17] = c63r * c63r + c63i * c63i;
+  }
+  __syncwarp();
+  if (lane >= kNumFeatures) return;
+  const float den = lane <= 3   ? fn1
+                    : lane == 4 ? fn1 - 1.f
+                    : lane == 7 ? cn_m2 * cn_m2
+                    : lane == 8 ? f_m2 * f_m2
+                                : 1.f;
+  const float s2 = s * s;
+  const float scale = lane == 6   ? rn
+                      : lane < 9  ? 1.f
+                      : lane < 11 ? s2
+                      : lane < 14 ? s2 * s2
+                                  : s2 * s2 * s2;
+  float r = __fdividef(num[lane], den);
+  if ((kSqrtLanes >> lane) & 1u) r = sqrtf(r);
+  out[static_cast<size_t>(frame) * kNumFeatures + lane] = r * scale;
 }
 
 // ---- gamma_max ---------------------------------------------------------
@@ -909,8 +1317,13 @@ int amc_fused_fits(int n1, int n2) {
          kSmemLimit;
 }
 
-// 1 if K2 can hold a frame of size n in shared memory.
+// 1 if K2 can hold a frame of size n (its block route keeps the frame in
+// shared memory).
 int amc_stats_fits(int n) { return stats_smem_bytes(n) <= kSmemLimit; }
+
+// K2's route for frames of n samples: 1 for the warpgroup kernel (the frame
+// in registers, 2 <= n <= 2048), 0 for the block kernel (longer frames).
+int amc_stats_path(int n) { return n >= 2 && n <= kWgMaxN ? 1 : 0; }
 
 // K1. tw is the (N, 2) table of W_N^m for the FFT path (else unused); w1r,
 // w1i, twr, twi the W_N1 and N1 x N2 twiddle tables, read where N1 is not a
@@ -949,23 +1362,35 @@ int amc_fused_features(const float* i, const float* q, const float* tw,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2: the 17 statistics of packed (B, 2, N) frames, column 0 zero, on the
+// route amc_stats_path(n) names.
 int amc_stats_features(const float* iq, float* out, int b, int n,
                        int normalize, void* stream) {
   if (!amc_stats_fits(n) || n < 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (b <= 0) return 0;
-  const size_t smem = stats_smem_bytes(n);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (n <= kThreads * kCached) {
-    err = set_smem(stats_kernel<kCached>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    stats_kernel<kCached><<<b, kThreads, smem, st>>>(iq, out, n, normalize);
+  if (amc_stats_path(n) == 1) {
+    const int blocks = (b + kWgFrames - 1) / kWgFrames;
+    const bool vec =
+        n % 4 == 0 && (reinterpret_cast<uintptr_t>(iq) & 15) == 0;
+    // 1/N and 1/(N-1) rounded once from double: the kernel multiplies by
+    // them where frame_stats divides
+    const float rn = static_cast<float>(1.0 / n);
+    const float rn1 = static_cast<float>(1.0 / (n - 1));
+    if (vec) {
+      stats_wg_kernel<true><<<blocks, kWgThreads * kWgFrames, 0, st>>>(
+          iq, out, b, n, rn, rn1, normalize);
+    } else {
+      stats_wg_kernel<false><<<blocks, kWgThreads * kWgFrames, 0, st>>>(
+          iq, out, b, n, rn, rn1, normalize);
+    }
   } else {
-    err = set_smem(stats_kernel<0>, smem);
+    const size_t smem = stats_smem_bytes(n);
+    const cudaError_t err = set_smem(stats_kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    stats_kernel<0><<<b, kThreads, smem, st>>>(iq, out, n, normalize);
+    stats_kernel<<<b, kThreads, smem, st>>>(iq, out, n, normalize);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,6 +45,7 @@ SIGNATURES: dict[str, dict[str, tuple[list, object]]] = {
         "amc_fused_gmax_path": ([_I], _I),
         "amc_fused_fits": ([_I, _I], _I),
         "amc_stats_fits": ([_I], _I),
+        "amc_stats_path": ([_I], _I),
         "amc_error_string": ([_I], ctypes.c_char_p),
     },
     "cnn_trunk": {

@@ -16,7 +16,10 @@ Phases, each printing one JSON line:
    take each of its gamma_max paths (the in-block FFT where N2 is a power
    of two: 256 ... 16384 and 12288 = 24 x 512; the direct stage 2 at
    1000 = 8 x 125 and 88 = 8 x 11), each check printing its path and
-   gamma_max's own share of the tolerance; K3 (the CNN trunk) on the same
+   gamma_max's own share of the tolerance; K2 on both of its routes
+   (``K2_CHECKS``: the warpgroup kernel up to 2048 samples, with 16-byte
+   and with scalar loads and a ragged last block, the block kernel above),
+   each check printing the route the launch took; K3 (the CNN trunk) on the same
    kind of frames and numpy-seeded folded stacks, within
    2e-2 + 2e-2 * |want| on the pooled features: the default stack
    (32, 64, 128) on its wgmma kernel at the main path's shapes, at ragged
@@ -123,7 +126,10 @@ Phases, each printing one JSON line:
    (``2e-4 * term_scales + 2e-5 * |want|``), and on the card the noise
    power of every SNR level within 5 standard errors of 10^(-snr/10),
    |x| at 200 dB within 1e-5 of the constellation's magnitudes and WGN of
-   unit power;
+   unit power; then the same run with ``compute.kernel = "pallas"``: the
+   same frames through K2 (24 launches, every one on the warpgroup route),
+   its wall time beside K1's and the same 512 rows against the plain
+   extractor;
 14. multi_device — ``init_distributed`` brings up a process group of one
    rank over NCCL on the card (a ``file://`` store; the backend is
    asserted, and nothing falls back to gloo or the CPU): the default MLP
@@ -147,14 +153,15 @@ Phases, each printing one JSON line:
    a block, a root each), within 120 s, with bit-identical artifacts and
    one checkpoint id.
 
-Seventeen paths are driven through the kernels: extraction and serving with
+Eighteen paths are driven through the kernels: extraction and serving with
 ``kernel="auto"`` (both through K1), serving with ``kernel="pallas"``
 (through K2), CNN serving (through K3), serving of phase 9's trained
 CNN (through K3), the three servers of phase 11 (the MLPs through K1, the
 CNN through K3), the int24 serving program and extraction of phase 12
 (through K1), phase 10's ``extract``, ``extract --from-synthetic``,
 ``extract --profile``, ``full`` and ``parity`` (through K1), phase 13's
-synthetic extraction (through K1) and phase 14's round-robin extraction
+synthetic extraction (through K1) and its ``kernel="pallas"`` run (through
+K2) and phase 14's round-robin extraction
 through the process group (through K1). Every launch counter is set to 0 just before each path
 and read just after it; the run fails if a path did not launch its kernel.
 The checked call of each request also records its own launches; phases 8
@@ -169,7 +176,10 @@ result.
 design (``k1_work``, ``k2_work``, ``k3_work``), FP32 work in lane
 operations (``FP32_LANE_OPS_PER_S``); K1's counts gamma_max's FFT at the real
 additions of a split-radix FFT, a floor on its lane operations. K3's row also names the kernel that
-ran at the timed shape (``path``) and that kernel's registers and spills.
+ran at the timed shape (``path``) and that kernel's registers and spills,
+and so does K2's (the warpgroup kernel with 16-byte loads at 4096 x 2048).
+Serving with ``kernel="pallas"`` fails unless every K2 launch took the
+warpgroup route.
 """
 
 from __future__ import annotations
@@ -430,7 +440,7 @@ def random_cnn(torch, seed: int):
 def phase_kernels(torch, dev) -> dict[str, dict]:
     from amcpy_tpu_torch.ops import features as F
     from amcpy_tpu_torch.ops.fused import extract_features_fused, gmax_path
-    from amcpy_tpu_torch.ops.pallas_features import extract_features_pallas
+    from amcpy_tpu_torch.ops.pallas_features import extract_features_pallas, stats_path
 
     rows: dict[str, dict] = {}
     checks = []
@@ -476,16 +486,21 @@ def phase_kernels(torch, dev) -> dict[str, dict]:
 
     k2 = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
     before = extract_features_pallas.launches
-    for seed, (b, n) in enumerate([(4096, 2048), (37, 1024), (2, 16384)], start=10):
+    for seed, (b, n) in enumerate(K2_CHECKS, start=10):
         x = test_frames(b, n, seed)
         iq = torch.from_numpy(F.to_planar(x)).to(dev)
+        by_path = dict(extract_features_pallas.launches_by_path)
         got = extract_features_pallas(iq, gmax_mode="matmul")
         torch.cuda.synchronize()
+        ran = [p for p, c in extract_features_pallas.launches_by_path.items()
+               if c > by_path[p]]
+        if ran != [stats_path(n)]:
+            raise AssertionError(f"K2 at N = {n} ran {ran}, not {stats_path(n)}")
         err, ratio = compare(
             got, F.extract_features_planar(iq, gmax_mode="matmul"), x
         )
-        checks.append({"kernel": "K2", "shape": [b, n], "max_abs_err": err,
-                       "max_err_over_tol": ratio})
+        checks.append({"kernel": "K2", "shape": [b, n], "path": ran[0],
+                       "max_abs_err": err, "max_err_over_tol": ratio})
         k2["max_abs_err"] = max(k2["max_abs_err"], err)
         k2["max_err_over_tol"] = max(k2["max_err_over_tol"], ratio)
         if (b, n) == (4096, 2048):
@@ -503,6 +518,7 @@ def phase_kernels(torch, dev) -> dict[str, dict]:
             k2["library_ms"] = None
             k2["bound_ms"], k2["bound_by"] = bound(*k2_work(b, n))
             k2["shape"] = [b, n]
+            k2["path"] = stats_path(n)
     if extract_features_pallas.launches <= before:
         raise AssertionError("the statistics kernel's launch counter did not rise")
     rows["pallas"] = k2
@@ -516,6 +532,12 @@ def phase_kernels(torch, dev) -> dict[str, dict]:
             raise AssertionError(f"{key} kernel disagrees with its plain version: {r}")
     return rows
 
+
+#: K2's checks (b, n): the main path's shape and the warpgroup route's
+#: scalar loads (N % 4 != 0: 1023, 6) and ragged last block (b = 5, 3) on
+#: one side of its route, and frames past 2048 samples (2049, 16384) on the
+#: block route
+K2_CHECKS = [(4096, 2048), (37, 1024), (2, 16384), (5, 1023), (3, 6), (2, 2049)]
 
 #: K3's checks: (widths, (b, n)); the default stack (the wgmma route) at
 #: the main path's shapes, ragged time axes (1000, 40) and batches below
@@ -964,7 +986,8 @@ def noise_stats(torch, synth, dev, mod: str, snr_db, frames: int, n: int, seed: 
 
 def phase_synthetic(torch, dev, cfg, work, counts, zero_counts, paths) -> dict:
     """Phase 13: frames drawn on the card and fed to K1 at the default
-    size (6 x 16 x 1000 x 2048), ``run_extraction_synthetic(seed=11)``."""
+    size (6 x 16 x 1000 x 2048), ``run_extraction_synthetic(seed=11)``,
+    then the same frames through K2 (``compute.kernel = "pallas"``)."""
     from amcpy_tpu_torch.data import io_mat, synth
     from amcpy_tpu_torch.extraction import _default_chunk_size, run_extraction_synthetic
     from amcpy_tpu_torch.ops import features as F
@@ -1007,11 +1030,21 @@ def phase_synthetic(torch, dev, cfg, work, counts, zero_counts, paths) -> dict:
             raise AssertionError(f"{mod}: synthetic artifact {art.shape} not finite/shaped")
     recs = [json.loads(t) for t in log.read_text().splitlines()]
 
+    # the same frames through K2, path 18: every launch on the warpgroup route
+    pcfg = scfg.replace(paths={"root": str(work / "synthetic_pallas")},
+                        compute={"kernel": "pallas"})
+    zero_counts()
+    t0 = time.perf_counter()
+    presults = run_extraction_synthetic(pcfg, seed=seed, device=dev, logger=MetricsLogger(
+        work / "synthetic_pallas" / "metrics" / "synthetic.jsonl"))
+    pwall = time.perf_counter() - t0
+    paths["synthetic_kernel_pallas"] = ("pallas", counts())
+
     # 512 random rows against the plain extractor on the same frames, drawn
     # again on the card from the same generators
     rng = np.random.default_rng(13)
     picks = np.sort(rng.choice(len(mods) * rows, 512, replace=False))
-    got, want, frames = [], [], []
+    got, pgot, want, frames = [], [], [], []
     for mi, mod in enumerate(mods):
         sel = picks[(picks >= mi * rows) & (picks < (mi + 1) * rows)] - mi * rows
         if not len(sel):
@@ -1022,8 +1055,10 @@ def phase_synthetic(torch, dev, cfg, work, counts, zero_counts, paths) -> dict:
         want.append(F.extract_features_planar(torch.stack((pi, pq), 1), gmax_mode="matmul"))
         frames.append(pi.cpu().numpy() + 1j * pq.cpu().numpy())
         got.append(torch.from_numpy(results[mod].reshape(-1, 18)[sel]))
+        pgot.append(torch.from_numpy(presults[mod].reshape(-1, 18)[sel]))
         del i, q
     err, ratio = compare(torch.cat(got), torch.cat(want), np.concatenate(frames))
+    perr, pratio = compare(torch.cat(pgot), torch.cat(want), np.concatenate(frames))
 
     stats = {mod: noise_stats(torch, synth, dev, mod, s.snr_db, s.num_frames, s.frame_size,
                               seed * 1000 + mi) for mi, mod in enumerate(mods)}
@@ -1033,10 +1068,16 @@ def phase_synthetic(torch, dev, cfg, work, counts, zero_counts, paths) -> dict:
             "gen_planes_ms_one_modulation": gen_ms, "chunk": chunk,
             "launches": paths["synthetic"][1], "launches_expected": want_launches,
             "rows_checked": 512, "max_abs_err": err, "max_err_over_tol": ratio,
-            "statistics_bar_se": STAT_SE, "statistics": stats}
+            "statistics_bar_se": STAT_SE, "statistics": stats,
+            "kernel_pallas": {"wall_s": pwall, "frames_per_s": len(mods) * rows / pwall,
+                              "launches": paths["synthetic_kernel_pallas"][1],
+                              "max_abs_err": perr, "max_err_over_tol": pratio}}
     bad_stats = [m for m, v in stats.items() if v["max_power_err_in_se"] > STAT_SE
                  or (v["max_magnitude_err"] is not None and v["max_magnitude_err"] > 1e-5)]
+    pc = paths["synthetic_kernel_pallas"][1]
     if (paths["synthetic"][1]["fused"] != want_launches or ratio > 1.0 or bad_stats
+            or pc["pallas"] != want_launches or pc["pallas_warpgroup"] != want_launches
+            or pc["fused"] or pratio > 1.0
             or len(recs) != len(mods) or any(r["event"] != "extract_synthetic" for r in recs)):
         raise AssertionError(f"synthetic extraction failed its checks: {line}")
     return line
@@ -1854,8 +1895,15 @@ def main() -> int:
     if len(wgmma_ptxas) != 1:
         raise AssertionError("ptxas reported no trunk_wgmma_kernel")
 
+    # K2's warpgroup kernel with 16-byte loads, the one its timed shape runs
+    wg_ptxas = [r for entry, r in ptxas_report(logs["features"]).items()
+                if "stats_wg_kernelILb1" in entry]
+    if len(wg_ptxas) != 1:
+        raise AssertionError("ptxas reported no stats_wg_kernel<true>")
+
     rows = phase_kernels(torch, dev)
     rows["cnn_trunk"].update(wgmma_ptxas[0])
+    rows["pallas"].update(wg_ptxas[0])
 
     work = Path(tempfile.mkdtemp(prefix="amc_chip_smoke_"))
     try:
@@ -1868,6 +1916,7 @@ def main() -> int:
         def counts() -> dict[str, int]:
             return {"fused": extract_features_fused.launches,
                     "pallas": extract_features_pallas.launches,
+                    "pallas_warpgroup": extract_features_pallas.launches_by_path["warpgroup"],
                     "cnn_trunk": cnn_trunk.launches,
                     "cnn_trunk_wgmma": cnn_trunk.launches_by_path["wgmma"],
                     "reroutes": extract_features_fused_any.reroutes}
@@ -1875,6 +1924,8 @@ def main() -> int:
         def zero_counts() -> None:
             extract_features_fused.launches = 0
             extract_features_pallas.launches = 0
+            for path in extract_features_pallas.launches_by_path:
+                extract_features_pallas.launches_by_path[path] = 0
             cnn_trunk.launches = 0
             for path in cnn_trunk.launches_by_path:
                 cnn_trunk.launches_by_path[path] = 0
@@ -2010,6 +2061,10 @@ def main() -> int:
         zero_counts()
         serve(stats_pipe, x, "pallas/complex", 4096, 11)
         paths["serving_kernel_pallas"] = ("pallas", counts())
+        # frames of 2048 samples: every K2 launch on the warpgroup route
+        c = paths["serving_kernel_pallas"][1]
+        if c["pallas_warpgroup"] != c["pallas"]:
+            raise AssertionError(f"kernel=\"pallas\" serving left the warpgroup route: {c}")
         emit({"phase": "serving", "atol": atol, "rtol": rtol,
               "requests": requests, "split_4096_complex_ms": split_4096,
               "stream_frames": int(preds.shape[0]),
@@ -2179,7 +2234,7 @@ def main() -> int:
         # ---- phase 12: the int24 wire, paths 9-10 ---------------------------
         emit(phase_wire(torch, dev, cfg, flat, order, counts, zero_counts, paths))
 
-        # ---- phase 13: frames drawn on the card and fed to K1, path 16 -------
+        # ---- phase 13: frames drawn on the card, fed to K1 and K2, paths 16, 18
         emit(phase_synthetic(torch, dev, cfg, work, counts, zero_counts, paths))
 
         # ---- phase 14: multi-device, NCCL in a world of one, path 17 -------
@@ -2222,8 +2277,8 @@ def main() -> int:
             # K1: how gamma_max was computed at the timed shape
             "gmax_path": r.get("gmax_path"),
             # K3: the module forward's time on the same frames, the three
-            # times its bound is the largest of, the kernel that ran at the
-            # timed shape, and that kernel's registers and spills
+            # times its bound is the largest of; K2 and K3: the kernel that
+            # ran at the timed shape, and that kernel's registers and spills
             "module_forward_ms": r.get("module_forward_ms"),
             "bound_parts_ms": r.get("bound_parts_ms"),
             "path": r.get("path"),

@@ -101,3 +101,19 @@ def test_k3_checks_cover_both_kernels():
     default = [shape for w, shape in cs.K3_CHECKS if w == cs.CNN_WIDTHS]
     assert (4096, 2048) in default
     assert any(n % 64 for _, n in default) and any(n < 64 for _, n in default)
+
+
+def test_k2_checks_cover_both_paths():
+    """The smoke holds both of K2's routes against the plain version: the
+    main path's 4096 x 2048 and a frame that is not a multiple of 4 (the
+    scalar loads) on the warpgroup route, frames past 2048 samples on the
+    block route."""
+    from amcpy_tpu_torch.ops.pallas_features import stats_path
+
+    paths = {stats_path(n) for _, n in cs.K2_CHECKS}
+    assert paths == {"warpgroup", "block"}
+    assert (4096, 2048) in cs.K2_CHECKS
+    warpgroup = [(b, n) for b, n in cs.K2_CHECKS if stats_path(n) == "warpgroup"]
+    assert any(n % 4 for _, n in warpgroup)
+    assert any(b % 2 for b, _ in warpgroup)  # a ragged last block of two frames
+    assert any(n == 2049 for _, n in cs.K2_CHECKS)

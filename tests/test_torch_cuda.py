@@ -28,7 +28,7 @@ from amcpy_tpu_torch.config import Config
 from amcpy_tpu_torch.ops import features as F
 from amcpy_tpu_torch.ops.cnn_infer import cnn_trunk, cnn_trunk_plain, trunk_path
 from amcpy_tpu_torch.ops.fused import extract_features_fused, split_planes
-from amcpy_tpu_torch.ops.pallas_features import extract_features_pallas
+from amcpy_tpu_torch.ops.pallas_features import extract_features_pallas, stats_path
 
 from .oracle import features_batch, term_scales
 
@@ -72,7 +72,8 @@ def _planes(x, dev):
 def test_kernels_match_plain_on_card(cuda, b, n):
     """K1's FFT path (N2 a power of two; 12288 = 24 x 512 with the direct
     N1 stage first) and its direct path (1000 = 8 x 125, 88 = 8 x 11); K2
-    with the samples in registers (N <= 2048) and recomputed per pass."""
+    on its warpgroup route (N <= 2048, the frame in registers) and its block
+    route (longer frames, recomputed per pass)."""
     x = _frames(b, n, seed=n)
     i, q = _planes(x, cuda)
     k1, k2 = extract_features_fused.launches, extract_features_pallas.launches
@@ -158,8 +159,67 @@ def test_fused_edge_phases_follow_oracle_on_card(cuda, frames):
     got = extract_features_fused(*_planes(x, cuda)).cpu().numpy()
     _assert_within(got, want, x, 1e-4, 1e-5)
     iq = torch.from_numpy(F.to_planar(x)).to(cuda)
+    by_path = dict(extract_features_pallas.launches_by_path)
     got2 = extract_features_pallas(iq).cpu().numpy()
     _assert_within(got2, want, x, 1e-4, 1e-5)
+    assert extract_features_pallas.launches_by_path == {
+        **by_path, "warpgroup": by_path["warpgroup"] + 1
+    }
+
+
+def _k2_launch(iq):
+    """K2 on ``iq`` with gamma_max by the matmul epilogue; the route the
+    launch was counted on."""
+    by_path = dict(extract_features_pallas.launches_by_path)
+    got = extract_features_pallas(iq, gmax_mode="matmul")
+    torch.cuda.synchronize()
+    ran = [p for p, c in extract_features_pallas.launches_by_path.items() if c > by_path[p]]
+    return got, ran
+
+
+@pytest.mark.parametrize(
+    "b,n",
+    [(5, 1023), (3, 6), (1, 2), (5, 2048), (2, 2048), (2, 2049), (9, 88), (3, 1001),
+     (4, 130)],
+)
+def test_k2_routes_match_plain_on_card(cuda, b, n):
+    """K2 on both sides of its route: scalar loads (N % 4 != 0: 1023, 6,
+    1001, 130 and the shortest frame, N = 2), ragged last blocks (odd B),
+    N = 2048 on the warpgroup route and 2049 on the block route."""
+    x = _frames(b, n, seed=n + b)
+    iq = torch.from_numpy(F.to_planar(x)).to(cuda)
+    got, ran = _k2_launch(iq)
+    assert ran == [stats_path(n)]
+    want = F._extract_planar(
+        iq[:, 0], iq[:, 1], normalize_scale=True, compute_gmax=True, gmax_mode="matmul"
+    )
+    _assert_within(got.cpu().numpy(), want.cpu().numpy(), x, 2e-4, 2e-5)
+
+
+def test_k2_unaligned_input_on_card(cuda):
+    """A contiguous input that starts 4 bytes past a 16-byte boundary takes
+    the warpgroup route's scalar loads, N % 4 == 0 or not."""
+    for b, n in ((3, 1024), (2, 1022)):
+        x = _frames(b, n, seed=b * n)
+        base = torch.empty(1 + b * 2 * n, device=cuda)
+        iq = base[1:].view(b, 2, n)
+        iq.copy_(torch.from_numpy(F.to_planar(x)))
+        assert iq.is_contiguous() and iq.data_ptr() % 16 == 4
+        got, ran = _k2_launch(iq)
+        assert ran == ["warpgroup"]
+        want = F._extract_planar(
+            iq[:, 0], iq[:, 1], normalize_scale=True, compute_gmax=True, gmax_mode="matmul"
+        )
+        _assert_within(got.cpu().numpy(), want.cpu().numpy(), x, 2e-4, 2e-5)
+
+
+@pytest.mark.parametrize("n", [2, 6, 88, 1000, 1023, 2048, 2049, 16384])
+def test_stats_path_follows_the_library(cuda, n):
+    """``stats_path`` names the route ``amc_stats_path`` takes."""
+    from amcpy_tpu_torch.ops import _build
+
+    code = _build.load("features").amc_stats_path(n)
+    assert stats_path(n) == {1: "warpgroup", 0: "block"}[code]
 
 
 def test_gmax_path_follows_n2(cuda):

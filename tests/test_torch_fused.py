@@ -45,9 +45,17 @@ def test_fused_matches_jax_fused_interpret(b, n):
     _assert_within(got, want, x, 2e-4, 2e-5)
 
 
-@pytest.mark.parametrize("gmax_mode", ["fft", "matmul"])
-def test_pallas_matches_jax_pallas_interpret(gmax_mode):
-    x = _frames(9, 256, seed=21)
+@pytest.mark.parametrize(
+    "b,n,gmax_mode",
+    [pytest.param(9, 256, "fft", id="fft"), pytest.param(9, 256, "matmul", id="matmul")]
+    + [pytest.param(b, n, mode, id=f"{mode}-{b}x{n}")
+       for b, n in [(5, 1023), (3, 88), (2, 2048)] for mode in ("fft", "matmul")],
+)
+def test_pallas_matches_jax_pallas_interpret(b, n, gmax_mode):
+    """K2's wrapper against JAX's at frame sizes of its warpgroup route: a
+    ragged batch of N % 4 != 0 (5 x 1023), a short frame (88) and the
+    longest frame the route holds (2048)."""
+    x = _frames(b, n, seed=21 if (b, n) == (9, 256) else b + n)
     iq = to_planar(x)
     want = np.asarray(
         jax_pallas(iq, tile_b=8, interpret=True, gmax_mode=gmax_mode)
@@ -94,11 +102,33 @@ def test_fused_rejects_mismatched_planes():
 def test_cpu_path_leaves_launch_counters():
     x = _frames(8, 256, seed=4)
     k1, k2 = extract_features_fused.launches, extract_features_pallas.launches
+    k2_by_path = dict(extract_features_pallas.launches_by_path)
     extract_features_fused(*_planes(x))
     extract_features_fused_any(*_planes(x))
     extract_features_pallas(torch.from_numpy(to_planar(x)))
     assert extract_features_fused.launches == k1
     assert extract_features_pallas.launches == k2
+    assert extract_features_pallas.launches_by_path == k2_by_path
+
+
+@pytest.mark.parametrize(
+    "n,want",
+    [(2, "warpgroup"), (6, "warpgroup"), (88, "warpgroup"), (1023, "warpgroup"),
+     (2048, "warpgroup"), (2049, "block"), (16384, "block")],
+)
+def test_stats_path_rule(n, want, monkeypatch):
+    """K2's route follows N alone: the warpgroup kernel holds frames of
+    2 <= N <= 2048 in registers, the block kernel takes longer ones.
+    ``stats_path`` builds nothing (the card tests hold it equal to the
+    library's ``amc_stats_path``)."""
+    from amcpy_tpu_torch.ops import _build
+    from amcpy_tpu_torch.ops.pallas_features import stats_path
+
+    def no_build(name):
+        raise AssertionError("stats_path must not build the library")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    assert stats_path(n) == want
 
 
 def test_signed_zero_gap_against_jax_kernels():
