@@ -64,8 +64,14 @@
 //    unlike the Pallas kernels' own _atan2; elsewhere it is within ~1e-7
 //    rad of atan2f;
 //  * moments are taken on x / max|x| and the cumulants rescaled by
-//    s^2 / s^4 / s^6, so x^6 terms stay inside float32; gamma_max uses the
-//    raw frame (the DFT is linear);
+//    s^2 / s^4 / s^6, so x^6 terms stay inside float32; |x / s|^2 is formed
+//    from the scaled samples, never as |x|^2 (1/s)^2, whose 1/s^2 overflows
+//    once s < ~5.4e-20; gamma_max uses the raw frame (the DFT is linear);
+//  * tiny amplitudes stay in range, as torch.hypot and a division keep them
+//    in the plain version: a thread holding a sample below 2^-50 takes its
+//    samples' amplitudes and phases again with a 2^100 rescale (tiny_key(),
+//    polar()), and |x| / mean|x| is taken on both scaled by 2^64 below
+//    mean|x| = 2^-100 (mean_scale());
 //  * every DFT weight and twiddle comes from the host (float64 rounded to
 //    float32), not from __sinf/__cosf; the butterflies' own constants are
 //    +-1, +-i and sqrt(1/2);
@@ -251,6 +257,49 @@ __device__ __forceinline__ float cabs(float re, float im) {
   return sqrtf(re * re + im * im);
 }
 
+// A sample is tiny when its larger component lies in (0, 2^-50): its
+// squares would lose bits to float32's subnormals or vanish, and phase_of's
+// reciprocal would see a subnormal. tiny_key() maps the larger component to
+// an unsigned key below kTinyKey exactly then (0 and NaN map above it), so
+// a thread finds out whether any of its samples is tiny by one minimum a
+// sample.
+constexpr float kTinyHi = 0x1p-50f;
+constexpr unsigned kTinyKey = 0x26800000u - 1u;  // the bits of 2^-50, less 1
+__device__ __forceinline__ unsigned tiny_key(float i, float q) {
+  return __float_as_uint(fmaxf(fabsf(i), fabsf(q))) - 1u;
+}
+
+// |x| of one sample, and its phase in p, for a thread with a tiny sample:
+// a tiny sample is scaled by 2^100 first (exactly; its phase does not
+// change), any other taken as it is
+__device__ __forceinline__ float polar(float i, float q, float& p) {
+  float down = 1.f;
+  if (fmaxf(fabsf(i), fabsf(q)) < kTinyHi) {
+    i *= 0x1p100f;
+    q *= 0x1p100f;
+    down = 0x1p-100f;
+  }
+  p = phase_of(q, i);
+  return sqrtf(i * i + q * q) * down;
+}
+
+// The factor |x| and mean|x| take before their ratio: 2^64 below
+// mean|x| = 2^-100, since 1 / mean|x| overflows float32 below ~2.9e-39
+// (a frame of subnormal samples); else 1
+__device__ __forceinline__ float mean_scale(float mean_a) {
+  return mean_a < 0x1p-100f ? 0x1p64f : 1.f;
+}
+
+// |x| of one sample: the plain root, or polar()'s where the thread has a
+// tiny sample
+__device__ __forceinline__ float amp_of(float i, float q, bool tiny) {
+  if (tiny) {
+    float p;
+    return polar(i, q, p);
+  }
+  return sqrtf(i * i + q * q);
+}
+
 // Calls f(j, k) for each sample k of this thread: k = j * kThreads + tid.
 // With kPer > 0 the loop is unrolled and j indexes the thread's registers.
 template <int kPer, typename F>
@@ -289,20 +338,33 @@ __device__ void frame_stats(const float* __restrict__ gi,
   // pass 1: the frame into shared memory; amplitude, phase; sums for the
   // means and max |x| in one reduction
   float s1[4] = {0.f, 0.f, 0.f, 0.f};
-  for_samples<kPer>(n, [&](int j, int k) {
-    const float i = __ldg(gi + k);
-    const float q = __ldg(gq + k);
-    xi[sw(k)] = i;
-    xq[sw(k)] = q;
-    const float a = sqrtf(i * i + q * q);
-    const float p = phase_of(q, i);
+  const auto add1 = [&](int j, int k, float a, float p) {
     ph[k] = p;
     if constexpr (kPer > 0) cn_c[j] = a;
     s1[0] += a;
     s1[1] += fabsf(p);
     s1[2] += p;
     s1[3] = fmaxf(s1[3], a);
+  };
+  unsigned key = ~0u;
+  for_samples<kPer>(n, [&](int j, int k) {
+    const float i = __ldg(gi + k);
+    const float q = __ldg(gq + k);
+    xi[sw(k)] = i;
+    xq[sw(k)] = q;
+    key = min(key, tiny_key(i, q));
+    add1(j, k, sqrtf(i * i + q * q), phase_of(q, i));
   });
+  // a tiny sample: this thread's samples again, through polar()
+  const bool tiny = key < kTinyKey;
+  if (tiny) {
+    s1[0] = s1[1] = s1[2] = s1[3] = 0.f;
+    for_samples<kPer>(n, [&](int j, int k) {
+      float p;
+      const float a = polar(xi[sw(k)], xq[sw(k)], p);
+      add1(j, k, a, p);
+    });
+  }
   // its barrier also publishes xi, xq, ph
   const float t1 = block_reduce<4, true>(s1, red0);
   const float sum_a = lane_value(t1, 0);
@@ -310,10 +372,10 @@ __device__ void frame_stats(const float* __restrict__ gi,
   const float mean_ap = lane_value(t1, 1) / fn;
   const float mean_p = lane_value(t1, 2) / fn;
   const float amax = lane_value(t1, 3);
-  const float inv_mean_a = 1.f / mean_a;
+  const float up = mean_scale(mean_a);
+  const float inv_mean_a = 1.f / (mean_a * up);
   const float s = (normalize && amax > 0.f) ? amax : 1.f;
   const float inv = 1.f / s;
-  const float inv2 = inv * inv;
 
   // pass 2: centred sums of the phases, sums of |cn|, cn, freq, and the
   // 14 real parts of the nine mixed moments of x / s
@@ -323,19 +385,18 @@ __device__ void frame_stats(const float* __restrict__ gi,
   for_samples<kPer>(n, [&](int j, int k) {
     const float i = xi[sw(k)];
     const float q = xq[sw(k)];
-    const float a2r = i * i + q * q;
     float a;
     if constexpr (kPer > 0) {
       a = cn_c[j];
     } else {
-      a = sqrtf(a2r);
+      a = amp_of(i, q, tiny);
     }
     const float p = ph[k];
     const float dap = fabsf(p) - mean_ap;
     v[0] += dap * dap;
     const float dp = p - mean_p;
     v[1] += dp * dp;
-    const float cn = a * inv_mean_a - 1.f;
+    const float cn = (a * up) * inv_mean_a - 1.f;
     v[2] += fabsf(cn);
     v[3] += cn;
     float f = 0.f;
@@ -349,7 +410,7 @@ __device__ void frame_stats(const float* __restrict__ gi,
     }
     const float iu = i * inv;
     const float qu = q * inv;
-    const float a2 = a2r * inv2;
+    const float a2 = iu * iu + qu * qu;
     const float x2r = iu * iu - qu * qu;
     const float x2i = 2.f * iu * qu;
     const float x4r = x2r * x2r - x2i * x2i;
@@ -387,7 +448,7 @@ __device__ void frame_stats(const float* __restrict__ gi,
     } else {
       const float i = xi[sw(k)];
       const float q = xq[sw(k)];
-      cn = sqrtf(i * i + q * q) * inv_mean_a - 1.f;
+      cn = (amp_of(i, q, tiny) * up) * inv_mean_a - 1.f;
     }
     const float da = fabsf(cn) - mean_acn;
     u[0] += da * da;
@@ -671,12 +732,22 @@ __global__ void __launch_bounds__(kWgThreads * kWgFrames, kWgMinBlocks)
   float am[kWgSamples];  // |x|; from pass 2 on: |x| / mean|x| - 1
   float ph[kWgSamples];
   float s1[4] = {0.f, 0.f, 0.f, 0.f};
+  unsigned key = ~0u;
 #pragma unroll
   for (int s = 0; s < kWgSamples; ++s) {
-    const float a = sqrtf(xi[s] * xi[s] + xq[s] * xq[s]);
-    const float p = phase_of(xq[s], xi[s]);
-    am[s] = a;
-    ph[s] = p;
+    key = min(key, tiny_key(xi[s], xq[s]));
+    am[s] = sqrtf(xi[s] * xi[s] + xq[s] * xq[s]);
+    ph[s] = phase_of(xq[s], xi[s]);
+  }
+  // a tiny sample: this thread's samples again, through polar()
+  if (key < kTinyKey) {
+#pragma unroll
+    for (int s = 0; s < kWgSamples; ++s) am[s] = polar(xi[s], xq[s], ph[s]);
+  }
+#pragma unroll
+  for (int s = 0; s < kWgSamples; ++s) {
+    const float a = am[s];
+    const float p = ph[s];
     s1[0] += a;
     s1[1] += fabsf(p);
     s1[2] += p;
@@ -712,10 +783,10 @@ __global__ void __launch_bounds__(kWgThreads * kWgFrames, kWgMinBlocks)
   const float mean_p = lane_value(m1, 2);
   const float amax = lane_value(t1, 3);
   const float s = (normalize && amax > 0.f) ? amax : 1.f;
-  const float rec = __fdividef(1.f, lane == 0 ? mean_a : s);
+  const float up = mean_scale(mean_a);  // as in frame_stats
+  const float rec = __fdividef(1.f, lane == 0 ? mean_a * up : s);
   const float inv_mean_a = lane_value(rec, 0);
   const float inv = lane_value(rec, 1);
-  const float inv2 = inv * inv;
 
   // pass 2: centred sums of the phases, sums of |cn|, cn, freq, and the
   // 14 real parts of the nine mixed moments of x / s
@@ -735,14 +806,13 @@ __global__ void __launch_bounds__(kWgThreads * kWgFrames, kWgMinBlocks)
       if (!kVec && k >= n) continue;
       const float i = xi[sm];
       const float q = xq[sm];
-      const float a2r = i * i + q * q;
       const float a = am[sm];
       const float p = ph[sm];
       const float dap = fabsf(p) - mean_ap;
       v[0] += dap * dap;
       const float dp = p - mean_p;
       v[1] += dp * dp;
-      const float cn = a * inv_mean_a - 1.f;
+      const float cn = (a * up) * inv_mean_a - 1.f;
       v[2] += fabsf(cn);
       v[3] += cn;
       am[sm] = cn;
@@ -753,7 +823,7 @@ __global__ void __launch_bounds__(kWgThreads * kWgFrames, kWgMinBlocks)
       }
       const float iu = i * inv;
       const float qu = q * inv;
-      const float a2 = a2r * inv2;
+      const float a2 = iu * iu + qu * qu;
       const float x2r = iu * iu - qu * qu;
       const float x2i = 2.f * iu * qu;
       const float x4r = x2r * x2r - x2i * x2i;

@@ -32,7 +32,14 @@ Numerics that must hold in every version (plain and CUDA):
   (``atan2(-0.0, -1) = -pi``);
 * frames are divided by ``s = max|x|`` before the moment sums and the
   cumulants are rescaled by s^2/s^4/s^6, so x^6 terms stay inside float32
-  under a per-frame scale spread of exp(+-6); gamma_max uses the raw frame.
+  under a per-frame scale spread of exp(+-6); ``|x/s|^2`` is formed from
+  the scaled samples (``|x|^2 / s^2`` would overflow ``1/s^2`` below
+  s ~ 5.4e-20); gamma_max uses the raw frame;
+* the amplitude rescales samples whose squares fall below float32's normal
+  range (``torch.hypot`` here, a scale by 2^100 in the kernels), so frames
+  of peak |x| down to a subnormal 1e-38 keep every column within the
+  float64 oracle's budget, or within float32's subnormal step where the
+  oracle's value lies below float32's range.
 """
 
 from __future__ import annotations
@@ -115,11 +122,12 @@ def _extract_planar(
     n = i.shape[-1]
 
     # ---- instantaneous streams (scale-invariant features) ----------------
-    a2_raw = i * i + q * q
-    # hypot, not sqrt(a2_raw): on the CPU torch.sqrt hands chunks of 2048
-    # samples to MKL's VML on several threads, and the first such call in
-    # a busy process has returned one chunk with ~1e-4 relative error;
-    # hypot is PyTorch's own vectorized code (and within an ulp of sqrt)
+    # hypot, not sqrt(i^2 + q^2): on the CPU torch.sqrt hands chunks of
+    # 2048 samples to MKL's VML on several threads, and the first such call
+    # in a busy process has returned one chunk with ~1e-4 relative error;
+    # hypot is PyTorch's own vectorized code (within an ulp of sqrt), and
+    # it rescales, so samples whose squares fall below float32's normal
+    # range keep their bits
     a_raw = torch.hypot(i, q)
     phase = torch.atan2(q, i)
     abs_phase = torch.abs(phase)
@@ -144,10 +152,12 @@ def _extract_planar(
         inv_s = (1.0 / s)[..., None]
         iu = i * inv_s
         qu = q * inv_s
-        a2 = a2_raw * torch.square(inv_s)
     else:
         s = None
-        iu, qu, a2 = i, q, a2_raw
+        iu, qu = i, q
+    # |x/s|^2 from the scaled samples: |x|^2 (1/s)^2 would form 1/s^2, which
+    # overflows float32 once s < ~5.4e-20
+    a2 = iu * iu + qu * qu
 
     # ---- mixed moments, planar complex arithmetic ------------------------
     x2r = iu * iu - qu * qu

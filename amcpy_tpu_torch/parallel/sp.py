@@ -87,7 +87,6 @@ def _extract_sp(i, q, group, n_seq, sidx, normalize_scale, gmax_mode):
     n_freq = n - 1
 
     # ---- amplitude / phase streams -----------------------------------
-    a2 = i * i + q * q
     a = torch.hypot(i, q)  # as the plain extractor (ROADMAP C-watch 7)
     phase = torch.atan2(q, i)
     abs_phase = phase.abs()
@@ -115,10 +114,12 @@ def _extract_sp(i, q, group, n_seq, sidx, normalize_scale, gmax_mode):
         s = all_reduce(a.amax(-1), "max", group)
         s = torch.where(s > 0, s, torch.ones_like(s))
         inv = (1.0 / s)[:, None]
-        iu, qu, a2n = i * inv, q * inv, a2 * inv.square()
+        iu, qu = i * inv, q * inv
     else:
         s = None
-        iu, qu, a2n = i, q, a2
+        iu, qu = i, q
+    # as the plain extractor: never 1/s^2, which overflows below s ~ 5.4e-20
+    a2n = iu * iu + qu * qu
 
     # ---- second sums: centred sums and the moments ----------------------
     cn = a / mean_a[:, None] - 1.0

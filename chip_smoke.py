@@ -151,9 +151,22 @@ Phases, each printing one JSON line:
    keeps to its card: one device, no fan-out). Then ``extract`` and ``train --epochs 2`` of the
    command line as two gloo ranks on the CPU (``--device cpu``, 24 frames
    a block, a root each), within 120 s, with bit-identical artifacts and
-   one checkpoint id.
+   one checkpoint id;
+15. records — the core of ``scripts/torch_wire_gate.py`` on the first 16
+   frames of each (modulation, SNR) block of phase 4's dataset (1,536
+   frames): K1 through ``extract_batch`` at the f32, int24 and int16 wires
+   and K2 at f32 against the float64 oracle, each call asserting its wire
+   and its launches; the float32 controls must stay under 0.85 of the
+   budget, the codecs' fractions are printed. Then K1 and K2 (N = 256 on
+   K2's warpgroup route, 4096 on its block route) against the plain
+   version on frames of peak |x| 1, 1e-19, 5e-20, 1e-20, 1e-30 and 1e-38
+   and on ordinary frames holding tiny, subnormal and zero samples: every
+   column finite and within ``2e-4 * term_scales + 2e-5 * |want| + 2 *
+   2^-149``; and, reported only, at peaks 1e-25 ... 1e-40 the columns of
+   the plain version, K1 and K2 that are not finite or leave those bars,
+   and those of the plain version outside the oracle's budget.
 
-Eighteen paths are driven through the kernels: extraction and serving with
+Nineteen paths are driven through the kernels: extraction and serving with
 ``kernel="auto"`` (both through K1), serving with ``kernel="pallas"``
 (through K2), CNN serving (through K3), serving of phase 9's trained
 CNN (through K3), the three servers of phase 11 (the MLPs through K1, the
@@ -161,8 +174,9 @@ CNN through K3), the int24 serving program and extraction of phase 12
 (through K1), phase 10's ``extract``, ``extract --from-synthetic``,
 ``extract --profile``, ``full`` and ``parity`` (through K1), phase 13's
 synthetic extraction (through K1) and its ``kernel="pallas"`` run (through
-K2) and phase 14's round-robin extraction
-through the process group (through K1). Every launch counter is set to 0 just before each path
+K2), phase 14's round-robin extraction
+through the process group (through K1) and phase 15's wire gate (through K1
+and K2). Every launch counter is set to 0 just before each path
 and read just after it; the run fails if a path did not launch its kernel.
 The checked call of each request also records its own launches; phases 8
 and 9 record theirs (training runs no kernel of the port). Then come the
@@ -1560,6 +1574,133 @@ def phase_wire(torch, dev, cfg, flat, order, counts, zero_counts, paths) -> dict
     return line
 
 
+#: frames a (modulation, SNR) block gives the records phase's wire gate
+RECORDS_TAKE = 16
+#: peak |x| of the frames the records phase holds K1 and K2 to their plain
+#: versions on, every column finite ...
+TINY_PEAKS = (1.0, 1e-19, 5e-20, 1e-20, 1e-30, 1e-38)
+#: ... and of the frames it only reports on: where float32 runs out
+DEEP_PEAKS = (1e-25, 1e-35, 1e-39, 1e-40)
+#: float32's subnormal step: the resolution of a float32 feature
+F32_STEP = 2.0**-149
+
+
+def peak_frames(b: int, n: int, peak: float, seed: int) -> np.ndarray:
+    """Gaussian complex64 frames, each scaled to a peak |x| of ``peak``."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))
+    return (x / np.abs(x).max(axis=-1, keepdims=True) * peak).astype(np.complex64)
+
+
+def tiny_sample_frames(b: int, n: int, seed: int) -> np.ndarray:
+    """Gaussian frames with every 7th sample scaled by 1e-30, every 11th
+    from the 3rd by 1e-41 (float32 subnormals) and every 13th from the 5th
+    set to 0."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))).astype(np.complex64)
+    x[:, ::7] *= np.float32(1e-30)
+    x[:, 3::11] *= np.float32(1e-41)
+    x[:, 5::13] = 0
+    return x
+
+
+def tiny_amplitude_checks(torch, dev) -> tuple[list[dict], list[dict]]:
+    """K1 and K2 (its warpgroup route at N = 256, its block route at 4096)
+    against the plain version on frames of tiny peak amplitude and on
+    ordinary frames holding tiny, subnormal and zero samples: every column
+    finite and within the kernel bar plus two subnormal steps (checked);
+    then, at ``DEEP_PEAKS``, which columns of the plain version, K1 and K2
+    are not finite, which leave the kernel bar of the plain version, and
+    which of the plain version leave the oracle's budget plus one subnormal
+    step (reported)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from oracle import features_batch
+    from amcpy_tpu_torch.ops import features as F
+    from amcpy_tpu_torch.ops.fused import extract_features_fused
+    from amcpy_tpu_torch.ops.pallas_features import extract_features_pallas, stats_path
+
+    def run(x):
+        i = torch.from_numpy(np.ascontiguousarray(x.real)).to(dev)
+        q = torch.from_numpy(np.ascontiguousarray(x.imag)).to(dev)
+        plain = F._extract_planar(i, q, normalize_scale=True, compute_gmax=True,
+                                  gmax_mode="matmul")
+        k1 = extract_features_fused(i, q)
+        k2 = extract_features_pallas(torch.from_numpy(F.to_planar(x)).to(dev),
+                                     gmax_mode="matmul")
+        return [t.cpu().double().numpy() for t in (plain, k1, k2)]
+
+    def cols(mask) -> list[int]:
+        return sorted(set((np.nonzero(mask)[1] + 1).tolist()))
+
+    checks, deep = [], []
+    cases = [(f"peak {p:g}", p) for p in TINY_PEAKS] + [("tiny samples", None)]
+    for n in (256, 4096):
+        for name, peak in cases:
+            x = (tiny_sample_frames(4, n, n) if peak is None
+                 else peak_frames(4, n, peak, seed=n + len(checks)))
+            plain, k1, k2 = run(x)
+            tol = (TOL_SCALE * term_scales(x) + TOL_REL * np.abs(plain) + 2 * F32_STEP)
+            row = {"frames": name, "n": n, "k2_path": stats_path(n)}
+            for kname, got in (("plain", plain), ("K1", k1), ("K2", k2)):
+                row[f"{kname}_not_finite"] = cols(~np.isfinite(got))
+                if kname != "plain":
+                    row[f"{kname}_over_tol"] = float(np.nanmax(np.abs(got - plain) / tol))
+            checks.append(row)
+            if (row["plain_not_finite"] or row["K1_not_finite"] or row["K2_not_finite"]
+                    or row["K1_over_tol"] > 1.0 or row["K2_over_tol"] > 1.0):
+                raise AssertionError(f"K1/K2 at tiny amplitude: {row}")
+        for peak in DEEP_PEAKS:
+            x = peak_frames(4, n, peak, seed=n + 7)
+            plain, k1, k2 = run(x)
+            want = features_batch(x)
+            scale = term_scales(x)
+            budget = 1e-4 * scale + 1e-5 * np.abs(want) + F32_STEP
+            tol = TOL_SCALE * scale + TOL_REL * np.abs(plain) + 2 * F32_STEP
+            row = {"peak": peak, "n": n,
+                   "plain_over_oracle_budget": cols(~(np.abs(plain - want) <= budget))}
+            for kname, got in (("plain", plain), ("K1", k1), ("K2", k2)):
+                row[f"{kname}_not_finite"] = cols(~np.isfinite(got))
+                if kname != "plain":
+                    row[f"{kname}_over_tol"] = cols(~(np.abs(got - plain) <= tol))
+            deep.append(row)
+    return checks, deep
+
+
+def phase_records(torch, dev, cfg, data, counts, zero_counts, paths) -> dict:
+    """The wire gate's core (``scripts/torch_wire_gate.py``) on
+    ``RECORDS_TAKE`` frames a (modulation, SNR) block of the dataset: K1 at
+    f32, int24 and int16 and K2 at f32 through ``extract_batch`` against
+    the float64 oracle; the float32 controls under the 0.85 gate (checked),
+    the codecs' fractions reported. Then :func:`tiny_amplitude_checks`."""
+    from scripts.torch_wire_gate import device_extractors, gate
+
+    batches = [(mod, data[mod][:, :RECORDS_TAKE]) for mod in cfg.signals.modulations_with_noise]
+    zero_counts()
+    t0 = time.perf_counter()
+    report = gate(batches, device_extractors(dev, ["int24", "int16"]), budget_frac=0.85)
+    gate_s = time.perf_counter() - t0
+    paths["records_gate"] = (("fused", "pallas"), counts())
+    t0 = time.perf_counter()
+    checks, deep = tiny_amplitude_checks(torch, dev)
+    line = {
+        "phase": "records", "gate_frames": report["f32"]["frames"], "gate_s": gate_s,
+        "budget_fraction": {k: v["worst_budget_fraction"] for k, v in
+                            [("f32", report["f32"]), ("k2_f32", report["k2_f32"]),
+                             *report["formats"].items()]},
+        "budget_fraction_frame_scales": {
+            k: v["worst_budget_fraction_frame_scales"] for k, v in
+            [("f32", report["f32"]), ("k2_f32", report["k2_f32"]),
+             *report["formats"].items()]},
+        "launches": paths["records_gate"][1],
+        "tiny_amplitude_tolerance": "2e-4*term_scales + 2e-5*|plain| + 2*2^-149",
+        "tiny_amplitude": checks, "deep_peaks": deep,
+        "tiny_amplitude_s": time.perf_counter() - t0,
+    }
+    if not (report["f32"]["pass"] and report["k2_f32"]["pass"]):
+        raise AssertionError(f"a float32 control exceeds the wire gate: {line}")
+    return line
+
+
 #: the 2-rank CPU run of the command line in phase 14 must end within this
 CPU_RANKS_DEADLINE_S = 120.0
 
@@ -1830,6 +1971,11 @@ def phase_multi_device(torch, dev, cfg, features, data, work, counts, zero_count
                    "collectives": sp_audit, "ms": sp_ms, "k1_ms": k1_ms},
             "fanout": fanout,
             "cpu_two_ranks": cpu_two_ranks(cfg, data, work, Path(__file__).resolve().parent)}
+
+
+def path_keys(keys) -> tuple[str, ...]:
+    """The kernels a path must launch: one key or a tuple of them."""
+    return (keys,) if isinstance(keys, str) else tuple(keys)
 
 
 def timed(torch, fn) -> float:
@@ -2241,9 +2387,13 @@ def main() -> int:
         emit(phase_multi_device(torch, dev, cfg, results, data, work, counts, zero_counts,
                                 paths))
 
-        for path, (key, c) in paths.items():
-            if c[key] == 0 or c["reroutes"]:
-                raise AssertionError(f"path {path} did not run through {key}: {c}")
+        # ---- phase 15: the records' gate core and tiny amplitudes, path 19 --
+        emit(phase_records(torch, dev, cfg, data, counts, zero_counts, paths))
+
+        for path, (keys, c) in paths.items():
+            for key in path_keys(keys):
+                if c[key] == 0 or c["reroutes"]:
+                    raise AssertionError(f"path {path} did not run through {key}: {c}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2265,7 +2415,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             # summed over the paths that run through this kernel
-            "launches": sum(c[key] for k, c in paths.values() if k == key),
+            "launches": sum(c[key] for k, c in paths.values() if key in path_keys(k)),
             "launches_by_path": by_path,
             "launches_per_4096_frame_request": per_request[f"{key}/complex"][key],
             "max_abs_err": r["max_abs_err"],

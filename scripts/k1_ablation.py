@@ -54,7 +54,17 @@ VARIANTS = {
     "no_swizzle": [("{ return x ^ (((x >> 5) & 7) << 2); }", "{ return x; }")],
     # CUDA's atan2f for the phase (a division and branches) in place of
     # phase_of
-    "atan2f": [("const float p = phase_of(q, i);", "const float p = atan2f(q, i);")],
+    "atan2f": [("add1(j, k, sqrtf(i * i + q * q), phase_of(q, i));",
+                "add1(j, k, sqrtf(i * i + q * q), atan2f(q, i));")],
+    # the arithmetic of the kernels before the tiny-amplitude repair: no
+    # thread goes over its samples again through polar() (the amplitude of
+    # a sample below 2^-50 from its subnormal squares), no 2^64 scale
+    # before |x| / mean|x|, and |x / s|^2 as |x|^2 (1/s)^2
+    "before_repair": [("const bool tiny = key < kTinyKey;", "const bool tiny = false;"),
+                      ("return mean_a < 0x1p-100f ? 0x1p64f : 1.f;", "return 1.f;"),
+                      ("if (key < kTinyKey) {", "if (false) {"),
+                      ("const float a2 = iu * iu + qu * qu;",
+                       "const float a2 = (i * i + q * q) * (inv * inv);")],
     # three blocks a SM for K1 and K2's block route (no register cap at 64)
     "three_blocks": [("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 3;")],
     # K2 at N = 2048 on the block route (one 256-thread block a frame, the

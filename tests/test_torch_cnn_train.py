@@ -115,6 +115,38 @@ def test_train_step_matches_flax(dtype):
                                        err_msg=f"{names[i]} {m}")
 
 
+#: the k=8 control arm of the CNN record (``scripts/torch_cnn_wide_control.py``)
+WIDE = dict(channels=(32, 64, 128), kernel_sizes=(8, 8, 8), strides=(2, 2, 2), dense=128)
+
+
+@pytest.mark.parametrize("n", [256, 250])
+def test_wide_strided_stack_gradients_match_flax(n):
+    """The k=8, stride-2 stack of the control arm (SAME padding, odd at
+    N = 250) in float32, dropout 0: every layer's kernel gradient against
+    flax's within 2e-5 of its largest."""
+    arch = dict(WIDE, dropout=0.0, dtype="float32")
+    jm = JaxIQConvNet(n_classes=6, **arch)
+    params, stats = _flax_weights(jm, n, seed=3)
+    x = _frames(64, n, seed=4)
+    y = np.random.default_rng(5).integers(0, 6, 64).astype(np.int32)
+
+    def loss_fn(p):
+        logits, _ = jm.apply({"params": p, "batch_stats": stats}, x, train=True,
+                             mutable=["batch_stats"])
+        return jnp.mean(optax.softmax_cross_entropy_with_integer_labels(logits, y))
+
+    grads = _np(jax.grad(loss_fn)(params))
+    model = IQConvNet(6, **arch)
+    model.load_state_dict(cnn_params_from_flax(params, stats))
+    logits = model.train()(torch.from_numpy(x), generator=torch.Generator().manual_seed(0))
+    torch.nn.functional.cross_entropy(logits, torch.from_numpy(y.astype(np.int64))).backward()
+    pairs = [(grads[f"Conv_{k}"]["kernel"], model.conv[k].weight.grad.numpy().transpose(2, 1, 0))
+             for k in range(3)]
+    pairs.append((grads["Dense_0"]["kernel"], model.dense.weight.grad.numpy().T))
+    for want, got in pairs:
+        assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
+
+
 def _draws(b, n, seed, lo=-12.0, hi=25.0):
     """Fixed augmentation draws: theta, snr_db, the keep uniforms, noise."""
     rng = np.random.default_rng(seed)

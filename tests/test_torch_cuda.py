@@ -196,6 +196,76 @@ def test_k2_routes_match_plain_on_card(cuda, b, n):
     _assert_within(got.cpu().numpy(), want.cpu().numpy(), x, 2e-4, 2e-5)
 
 
+#: float32's subnormal step: below it two float32 results cannot differ
+#: by less, nor a float32 result come closer to a value below its range
+F32_STEP = 2.0**-149
+
+#: peak |x| of the tiny-amplitude frames (ROADMAP C-watch 21), down to a
+#: subnormal peak (1e-38: every sample subnormal, mean|x| below the range
+#: of its reciprocal)
+TINY_PEAKS = [1.0, 1e-15, 1e-19, 5e-20, 1e-20, 1e-30, 1e-38]
+
+
+def _peak_frames(b, n, peak, seed):
+    """Gaussian frames, each scaled to a peak |x| of ``peak``."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))
+    return (x / np.abs(x).max(axis=-1, keepdims=True) * peak).astype(np.complex64)
+
+
+def _tiny_sample_frames(b, n, seed):
+    """Gaussian frames of ordinary amplitude with every 7th sample scaled
+    by 1e-30, every 11th from the 3rd by 1e-41 (float32 subnormals) and
+    every 13th from the 5th set to 0."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))).astype(np.complex64)
+    x[:, ::7] *= np.float32(1e-30)
+    x[:, 3::11] *= np.float32(1e-41)
+    x[:, 5::13] = 0
+    return x
+
+
+def _assert_kernels_match_plain(x, dev):
+    """K1 and K2 on ``x`` finite and within the kernel bar of the plain
+    version (plus two subnormal steps, one a side)."""
+    n = x.shape[-1]
+    i, q = _planes(x, dev)
+    want = F._extract_planar(
+        i, q, normalize_scale=True, compute_gmax=True, gmax_mode="matmul"
+    ).cpu().numpy().astype(np.float64)
+    assert np.isfinite(want).all()
+    k1 = extract_features_fused(i, q).cpu().numpy().astype(np.float64)
+    k2, ran = _k2_launch(torch.from_numpy(F.to_planar(x)).to(dev))
+    assert ran == [stats_path(n)]
+    tol = (2e-4 * np.stack([term_scales(f) for f in x]) + 2e-5 * np.abs(want)
+           + 2 * F32_STEP)
+    for name, got in (("K1", k1), ("K2", k2.cpu().numpy().astype(np.float64))):
+        assert np.isfinite(got).all(), (name, np.nonzero(~np.isfinite(got))[1] + 1)
+        bad = np.abs(got - want) > tol
+        assert not bad.any(), (name, sorted(set(np.nonzero(bad)[1] + 1)))
+
+
+@pytest.mark.parametrize("peak", TINY_PEAKS)
+@pytest.mark.parametrize("n", [256, 4096])
+def test_kernels_at_tiny_peaks_match_plain_on_card(cuda, n, peak):
+    """K1 and K2 (the warpgroup route at N = 256, the block route at 4096)
+    on frames of tiny peak amplitude, whose samples all take the kernels'
+    2^100 rescale below peak ~2^-50: against the plain version, which
+    ``test_torch_features.py::test_tiny_peak_amplitudes`` holds to the
+    oracle."""
+    assert stats_path(n) == ("warpgroup" if n <= 2048 else "block")
+    _assert_kernels_match_plain(
+        _peak_frames(4, n, peak, seed=int(n + 1e3 * -np.log10(peak))), cuda)
+
+
+@pytest.mark.parametrize("n", [256, 2048, 4096])
+def test_kernels_with_tiny_samples_match_plain_on_card(cuda, n):
+    """Tiny, subnormal and zero samples inside ordinary frames: the threads
+    that hold one go over their samples again through polar(), the others
+    keep the plain root and phase."""
+    _assert_kernels_match_plain(_tiny_sample_frames(5, n, seed=n), cuda)
+
+
 def test_k2_unaligned_input_on_card(cuda):
     """A contiguous input that starts 4 bytes past a 16-byte boundary takes
     the warpgroup route's scalar loads, N % 4 == 0 or not."""

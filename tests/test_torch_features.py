@@ -165,3 +165,77 @@ def test_extract_features_complex_entry():
     np.testing.assert_array_equal(from_numpy, _port(x))
     with pytest.raises(TypeError):
         F.extract_features(torch.zeros(2, 8))
+
+
+#: float32's subnormal step, 2^-149: a float32 result can neither resolve
+#: a difference below it nor come closer to an oracle value that lies below
+#: float32's range (a cumulant of order 4 at peak 1e-15 is ~1e-63)
+F32_STEP = 2.0**-149
+
+
+def _peak_frame(n, peak, seed):
+    """One Gaussian frame scaled to a peak |x| of ``peak``."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((1, n)) + 1j * rng.standard_normal((1, n))
+    return (x / np.abs(x).max() * peak).astype(np.complex64)
+
+
+@pytest.mark.parametrize("peak", [1.0, 1e-15, 1e-19, 5e-20, 1e-20])
+def test_tiny_peak_amplitudes(peak):
+    """Frames of tiny amplitude: the plain version stays finite in all 18
+    columns and within the oracle's budget (plus float32's subnormal step),
+    and equals JAX's XLA extractor wherever that one is finite and within
+    the same budget. ``|x|^2 (1/s)^2`` overflowed ``1/s^2`` below s ~
+    5.4e-20 (c21, c41, c42, c61, c62, c63 went inf/nan); JAX's f4 and f8
+    are nan from 1e-19 down (its amplitudes flush to zero there), a
+    divergence pinned here."""
+    x = _peak_frame(256, peak, seed=21)
+    got = _port(x).astype(np.float64)
+    assert np.isfinite(got).all(), np.nonzero(~np.isfinite(got))[1] + 1
+    want = features_batch(x)
+    budget = 1e-4 * _scales(x) + 1e-5 * np.abs(want) + F32_STEP
+    bad = np.abs(got - want) > budget
+    assert not bad.any(), f"features {sorted(set(np.nonzero(bad)[1] + 1))}"
+
+    jax_got = np.asarray(
+        jax_features.extract_features_planar(F.to_planar(x))
+    ).astype(np.float64)
+    held = np.isfinite(jax_got) & (np.abs(jax_got - want) <= budget)
+    tol = 2e-4 * _scales(x) + 2e-5 * np.abs(jax_got) + 2 * F32_STEP
+    bad = (np.abs(got - jax_got) > tol) & held
+    assert not bad.any(), f"features {sorted(set(np.nonzero(bad)[1] + 1))}"
+    if peak == 1.0:
+        assert held.all()
+    if peak <= 1e-19:
+        assert np.isnan(jax_got[0, [3, 7]]).all()
+
+
+@pytest.mark.parametrize("peak", [1e-25, 1e-30, 1e-35, 1e-38])
+def test_deep_peak_amplitudes_within_the_oracle_budget(peak):
+    """Below the squares' range (peak ~1e-23) the amplitude's rescale keeps
+    every column within the oracle's budget (plus float32's subnormal step)
+    down to a subnormal peak; below ~2.9e-39 1/max|x| overflows float32."""
+    x = _peak_frame(1024, peak, seed=22)
+    got = _port(x).astype(np.float64)
+    assert np.isfinite(got).all(), np.nonzero(~np.isfinite(got))[1] + 1
+    want = features_batch(x)
+    bad = np.abs(got - want) > 1e-4 * _scales(x) + 1e-5 * np.abs(want) + F32_STEP
+    assert not bad.any(), f"features {sorted(set(np.nonzero(bad)[1] + 1))}"
+
+
+def test_tiny_samples_in_an_ordinary_frame():
+    """Tiny (1e-30), subnormal (1e-41) and zero samples inside frames of
+    ordinary amplitude: the plain version against the oracle, as
+    ``test_torch_cuda.py`` holds the kernels to it on such frames."""
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal((4, 256)) + 1j * rng.standard_normal((4, 256))).astype(
+        np.complex64
+    )
+    x[:, ::7] *= np.float32(1e-30)
+    x[:, 3::11] *= np.float32(1e-41)
+    x[:, 5::13] = 0
+    got = _port(x)
+    assert np.isfinite(got).all()
+    want = features_batch(x)
+    bad = np.abs(got - want) > 1e-4 * _scales(x) + 1e-5 * np.abs(want) + F32_STEP
+    assert not bad.any(), f"features {sorted(set(np.nonzero(bad)[1] + 1))}"

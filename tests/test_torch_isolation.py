@@ -63,6 +63,31 @@ def test_no_source_names_jax_or_the_jax_package():
     assert len(sources) > 15
 
 
+def test_port_scripts_name_no_jax_or_the_jax_package():
+    """The port's scripts run on the card's machine too: the record scripts
+    (``scripts/torch_*.py``) and the kernel ablations import nothing of JAX,
+    flax, msgpack or ``amcpy_tpu``, by name or once imported."""
+    scripts = sorted((ROOT / "scripts").glob("torch_*.py")) + [
+        ROOT / "scripts" / "k1_ablation.py", ROOT / "scripts" / "k3_ablation.py"]
+    assert len(scripts) >= 6
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|msgpack)\b|amcpy_tpu\.", re.M)
+    bad = [str(p.relative_to(ROOT)) for p in scripts if pattern.search(p.read_text())]
+    assert not bad, bad
+    names = [f"scripts.{p.stem}" for p in scripts]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {names!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'msgpack')\n"
+        "             or m.startswith(('jax.', 'flax.', 'msgpack.'))\n"
+        "             or m == 'amcpy_tpu' or m.startswith('amcpy_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
