@@ -51,7 +51,8 @@ from torch import nn
 from amcpy_tpu_torch.models.layers import FlaxBatchNorm1d, dropout, init_flax_defaults
 from amcpy_tpu_torch.utils.device import no_tf32
 
-__all__ = ["IQConvNet", "augment", "augmentation_draws", "same_padding"]
+__all__ = ["IQConvNet", "augment", "augmentation_draws", "conv_bias_report",
+           "same_padding"]
 
 #: the compute dtypes of the JAX package's checkpoints (``jnp.dtype`` names)
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -219,3 +220,37 @@ class IQConvNet(nn.Module):
             h = pooled @ self.dense.weight.to(dt).T + self.dense.bias.to(dt)
             h = dropout(torch.relu(h), self.dropout, self.training, generator, shard)
             return self.out(h.to(base))
+
+
+@torch.no_grad()
+def conv_bias_report(model: IQConvNet, x: torch.Tensor) -> list[dict[str, float]]:
+    """Per conv layer of ``model`` (eval mode, on frames ``x`` on its
+    device): ``max_abs_bias``, the largest |bias|; ``product_std``, the std
+    of the layer's product before the bias, over batch, channels and time,
+    in float32; and ``ratio``, the largest |bias_c| over its channel's std.
+
+    A conv bias that feeds a BatchNorm gets a gradient that is zero in
+    exact arithmetic, so an adaptive optimizer moves it on roundoff alone;
+    in bf16 the bias is added to the product in bf16 (as ``nn.Conv`` does),
+    so a bias many times the product's spread rounds the product away."""
+    inputs: list[torch.Tensor] = []
+    hooks = [norm.register_forward_pre_hook(lambda _, args: inputs.append(args[0]))
+             for norm in model.norm]
+    was_training = model.training
+    model.eval()
+    try:
+        model(x)
+    finally:
+        model.train(was_training)
+        for hook in hooks:
+            hook.remove()
+    out = []
+    for conv, z in zip(model.conv, inputs):
+        # each BatchNorm's input is the product plus the bias, the sum
+        # rounded to the compute dtype; a channel's std is its product's
+        bias = conv.bias.detach().float()
+        y = z.float() - conv.bias.detach().to(model.compute_dtype).float()[:, None]
+        per_channel = y.transpose(0, 1).reshape(y.shape[1], -1).std(dim=1)
+        out.append({"max_abs_bias": float(bias.abs().max()), "product_std": float(y.std()),
+                    "ratio": float((bias.abs() / per_channel.clamp_min(1e-30)).max())})
+    return out

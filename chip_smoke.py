@@ -164,7 +164,19 @@ Phases, each printing one JSON line:
    column finite and within ``2e-4 * term_scales + 2e-5 * |want| + 2 *
    2^-149``; and, reported only, at peaks 1e-25 ... 1e-40 the columns of
    the plain version, K1 and K2 that are not finite or leave those bars,
-   and those of the plain version outside the oracle's budget.
+   and those of the plain version outside the oracle's budget;
+16. training_card_vs_cpu — the CNN record's k=8 stride-2 stack (the one
+   training route through cuDNN's strided convolution) trained 30 RMSprop
+   steps at the config's lr, N = 512, batch 128, dropout 0, on the card
+   and on the CPU from the same weights and orders, in float32 and in
+   bf16 (``scripts/torch_training_card_vs_cpu.py``): per step the loss
+   gap and its bar, the tensor (weight or gradient) nearest its bar, every
+   tensor's gap and bar at step 1, and each conv layer's max|bias| and
+   product std on both devices; the run fails past the script's bars (at
+   each step 4 times the devices' own spreads up to that step, or the
+   floors; the biases within 4 of the CPU's and below their product's
+   std), or where a fault planted in the card's strided convolution (its
+   kernels, or its weights' gradient, flipped in time) passes them.
 
 Nineteen paths are driven through the kernels: extraction and serving with
 ``kernel="auto"`` (both through K1), serving with ``kernel="pallas"``
@@ -1666,6 +1678,28 @@ def tiny_amplitude_checks(torch, dev) -> tuple[list[dict], list[dict]]:
     return checks, deep
 
 
+def phase_training_card_vs_cpu(dev) -> dict:
+    """Phase 16: the k=8 stack's training on the card against the CPU, in
+    float32 and bf16 (``scripts/torch_training_card_vs_cpu.py``); raises
+    past a bar or where a planted fault passes, after the line is
+    printed."""
+    from scripts.torch_training_card_vs_cpu import card_vs_cpu
+
+    line: dict = {"phase": "training_card_vs_cpu"}
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        # the gaps, bars and conv biases; the losses and every step's
+        # tensor gaps left out
+        line[dtype] = {k: v for k, v in card_vs_cpu(dtype, dev).items()
+                       if k not in ("card_loss", "cpu_loss", "tensors")}
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    bad = {d: line[d]["failures"] for d in ("float32", "bfloat16") if not line[d]["ok"]}
+    if bad:
+        raise AssertionError(f"the k=8 stack's training on the card left the CPU's: {bad}")
+    return line
+
+
 def phase_records(torch, dev, cfg, data, counts, zero_counts, paths) -> dict:
     """The wire gate's core (``scripts/torch_wire_gate.py``) on
     ``RECORDS_TAKE`` frames a (modulation, SNR) block of the dataset: K1 at
@@ -1993,7 +2027,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    here = Path(__file__).resolve().parent
+    if not (here / "amcpy_tpu_torch").is_dir():
+        print(f"chip_smoke: no amcpy_tpu_torch package beside {here / 'chip_smoke.py'}",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(here))
     from amcpy_tpu_torch.config import Config
     from amcpy_tpu_torch.data import io_mat
     from amcpy_tpu_torch.extraction import run_extraction
@@ -2389,6 +2428,9 @@ def main() -> int:
 
         # ---- phase 15: the records' gate core and tiny amplitudes, path 19 --
         emit(phase_records(torch, dev, cfg, data, counts, zero_counts, paths))
+
+        # ---- phase 16: the k=8 stack's training, the card against the CPU --
+        phase_training_card_vs_cpu(dev)
 
         for path, (keys, c) in paths.items():
             for key in path_keys(keys):

@@ -57,6 +57,11 @@ ARMS = ("mlp", "cnn", "cnn_aug", "cnn_wide_kernel_control")
 ONE_SEED_BAR = 0.03
 #: the SNR levels "high SNR" averages over: the last six
 HIGH_SNR_LEVELS = 6
+#: test frames a CNN arm's conv biases are reported on
+PROBE_FRAMES = 512
+#: the JAX record's arm each of the port's arms is held against, where the
+#: names differ (the JAX record has only the bf16 k=8 arm)
+JAX_ARM = {"cnn_wide_kernel_control_float32": "cnn_wide_kernel_control"}
 
 
 def make_config(root: str, frames: int | None = None, frame_size: int | None = None,
@@ -105,10 +110,11 @@ def vs_jax(results: dict, jax_record: dict) -> dict:
     """Each arm's gap to the JAX record in val_accuracy_mean and
     high_snr_mean, and whether it lies within the bar."""
     out = {}
-    for arm in ARMS:
-        if arm not in results or arm not in jax_record:
+    for arm in (*ARMS, *JAX_ARM):
+        ref_arm = JAX_ARM.get(arm, arm)
+        if arm not in results or ref_arm not in jax_record:
             continue
-        mine, ref = results[arm], jax_record[arm]
+        mine, ref = results[arm], jax_record[ref_arm]
         one_seed = len(mine["val_accuracy_per_seed"]) == 1 or len(
             ref["val_accuracy_per_seed"]) == 1
         bar = ONE_SEED_BAR if one_seed else 2 * float(
@@ -138,14 +144,18 @@ def train_arm(family: str, cfg, seeds: int, dev, *, features=None, data=None,
               excl=None, model_kw: dict | None = None, tag: str | None = None) -> dict:
     """Train ``family`` (``mlp`` on ``features``, else an ``IQConvNet`` on
     the raw ``data`` with ``model_kw``) for each seed and score it on the
-    held-out frames."""
-    from amcpy_tpu_torch.models.cnn import IQConvNet
+    held-out frames. A CNN arm also keeps, for each seed, each conv layer's
+    ``conv_bias_report`` after the last epoch on the first ``PROBE_FRAMES``
+    test frames (``conv_bias_per_seed``)."""
+    import torch
+
+    from amcpy_tpu_torch.models.cnn import IQConvNet, conv_bias_report
     from amcpy_tpu_torch.preprocessing import preprocess, preprocess_raw
     from amcpy_tpu_torch.train.evaluate import evaluate_by_snr, evaluate_by_snr_raw
     from amcpy_tpu_torch.train.training import train
 
     n_classes = len(cfg.signals.modulations_with_noise)
-    curves, val_accs, seconds = [], [], []
+    curves, val_accs, seconds, biases = [], [], [], []
     for seed in range(seeds):
         t0 = time.perf_counter()
         if family == "mlp":
@@ -159,13 +169,21 @@ def train_arm(family: str, cfg, seeds: int, dev, *, features=None, data=None,
                                       model=IQConvNet(n_classes, **(model_kw or {})),
                                       device=dev)
             acc = evaluate_by_snr_raw(model, data, cfg, exclude_mask=excl, device=dev)
+            biases.append(conv_bias_report(model, torch.from_numpy(
+                np.ascontiguousarray(x_te[:PROBE_FRAMES])).to(dev)))
+            print(f"[{tag or family}] seed {seed}: max|bias| / product std per layer "
+                  + ", ".join(f"{b['max_abs_bias']:.3g} / {b['product_std']:.3g}"
+                              for b in biases[-1]), flush=True)
         curves.append(np.asarray(acc))
         val_accs.append(float(hist["val_accuracy"][-1]))
         seconds.append(time.perf_counter() - t0)
         print(f"[{tag or family}] seed {seed}: held-out mean acc {np.mean(acc):.4f} "
               f"(high-SNR {np.mean(acc[:, -HIGH_SNR_LEVELS:]):.4f}, val "
               f"{val_accs[-1]:.4f}) in {seconds[-1]:.1f}s", flush=True)
-    return {**summarize(curves, val_accs), "seconds_per_seed": seconds}
+    out = {**summarize(curves, val_accs), "seconds_per_seed": seconds}
+    if biases:
+        out["conv_bias_per_seed"] = biases
+    return out
 
 
 def cnn_inference(dev, frame_size: int, n_classes: int, batch: int = 4096,
@@ -272,8 +290,9 @@ def main(argv: list[str] | None = None) -> int:
     cnn_kw = {"cnn": {},
               "cnn_aug": {"aug_phase": True, "aug_noise_snr_db": (-12.0, 25.0)}}
     for family in families:
-        update[family] = train_arm(family, cfg, args.seeds, dev, features=features,
-                                   data=data, excl=excl, model_kw=cnn_kw.get(family))
+        update[family] = {**train_arm(family, cfg, args.seeds, dev, features=features,
+                                      data=data, excl=excl, model_kw=cnn_kw.get(family)),
+                          **environment(dev)}
     update["cnn_inference"] = {
         **cnn_inference(dev, args.frame_size, len(cfg.signals.modulations_with_noise),
                         batch=min(4096, sum(len(f.reshape(-1, f.shape[-1]))

@@ -623,6 +623,28 @@ def test_bf16_cnn_train_step_on_card_matches_cpu(cuda):
                         _step_on(torch.device("cpu"), model, cfg, x, y), 5e-3, 1e-2)
 
 
+def test_wide_stack_training_on_card_matches_cpu(cuda):
+    """The k=8 stride-2 stack of the CNN record's control arm (default
+    widths, dropout 0) trained 30 RMSprop steps at the config's lr on 1,280
+    frames of 512 samples, batch 128, on the card and on the CPU from the
+    same weights and orders, in float32 and in bf16 (the card's strided
+    convolutions are cuDNN's): at every step the loss, every weight tensor
+    and every weight's gradient within 4 times the devices' own spreads up
+    to that step (the same steps from a start moved by 2^-20, the
+    data-free conv biases at +-lr, and with the rows of each batch
+    permuted) or the floor, and each conv layer's max|bias| within 4 of the
+    CPU's and below its product's std; a fault planted in the card's
+    strided convolution (kernels, or their gradient, flipped in time)
+    leaves those bars (``scripts/torch_training_card_vs_cpu.py``)."""
+    from scripts.torch_training_card_vs_cpu import PLANTS, card_vs_cpu
+
+    for dtype in ("float32", "bfloat16"):
+        result = card_vs_cpu(dtype, cuda)
+        assert result["steps"] == 30
+        assert result["ok"], (dtype, result["failures"])
+        assert all(result["planted"][f]["caught"] for f in PLANTS), dtype
+
+
 def _mlp_pipeline(cuda, tmp_path, n, **compute):
     from amcpy_tpu_torch.models.classifier import AMCClassifier
     from amcpy_tpu_torch.preprocessing import Standardizer

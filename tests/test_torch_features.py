@@ -239,3 +239,52 @@ def test_tiny_samples_in_an_ordinary_frame():
     want = features_batch(x)
     bad = np.abs(got - want) > 1e-4 * _scales(x) + 1e-5 * np.abs(want) + F32_STEP
     assert not bad.any(), f"features {sorted(set(np.nonzero(bad)[1] + 1))}"
+
+
+#: run in a fresh process by ``test_std_over_4096_frames_in_a_fresh_process``:
+#: the first float32 ``torch.sqrt`` of more than 2048 values in the process
+#: is ``_std_ddof1``'s (ROADMAP C-watch 7), then the whole plain extractor
+#: on 4096 frames against the float64 oracle
+_FRESH_STD = """
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, {root!r})
+from amcpy_tpu_torch.ops import features as F
+from tests.oracle import features_batch, term_scales
+
+rng = np.random.default_rng(23)
+b, n = 4096, 64
+v = (rng.standard_normal((b, n)) * np.exp(rng.uniform(-3, 3, (b, 1)))).astype(np.float32)
+got = F._std_ddof1(torch.from_numpy(v)).numpy()
+want = np.std(v.astype(np.float64), axis=-1, ddof=1)
+assert np.all(np.abs(got - want) <= 1e-5 * want), float(np.max(np.abs(got / want - 1)))
+x = (rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))) * np.exp(
+    rng.uniform(-3, 3, (b, 1)))
+x = x.astype(np.complex64)
+feats = F.extract_features_planar(torch.from_numpy(F.to_planar(x)), gmax_mode="matmul").numpy()
+ref = features_batch(x)
+tol = np.stack([1e-4 * term_scales(f) for f in x]) + 1e-5 * np.abs(ref)
+bad = np.abs(feats - ref) > tol
+assert not bad.any(), sorted(set(np.nonzero(bad)[1] + 1))
+print("ok", float(np.max(np.abs(got / want - 1))))
+"""
+
+
+def test_std_over_4096_frames_in_a_fresh_process():
+    """ROADMAP C-watch 7: ``_std_ddof1`` takes ``torch.sqrt`` of a (B,)
+    vector, which for B > 2048 on the CPU goes to MKL's vector math on
+    threads, the path that once returned a wrong chunk on its first call in
+    a busy process. In a fresh process, its first such call (B = 4096)
+    against numpy's float64 std (rtol 1e-5), then the plain extractor on
+    the 4096 frames against the float64 oracle (``1e-4 * term_scales +
+    1e-5 * |want|``)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent.parent)
+    out = subprocess.run([sys.executable, "-c", _FRESH_STD.format(root=root)],
+                         capture_output=True, text=True, timeout=240, cwd=root)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("ok")

@@ -63,13 +63,26 @@ def test_no_source_names_jax_or_the_jax_package():
     assert len(sources) > 15
 
 
+#: scripts that hold the port against the JAX package and so import both:
+#: they run where JAX does (the CPU), never on the card's machine
+PARITY_TOOLS = ("torch_cnn_arms_cpu.py",)
+
+
 def test_port_scripts_name_no_jax_or_the_jax_package():
     """The port's scripts run on the card's machine too: the record scripts
     (``scripts/torch_*.py``) and the kernel ablations import nothing of JAX,
-    flax, msgpack or ``amcpy_tpu``, by name or once imported."""
-    scripts = sorted((ROOT / "scripts").glob("torch_*.py")) + [
+    flax, msgpack or ``amcpy_tpu``, by name or once imported. The parity
+    tools (``PARITY_TOOLS``) import both packages by design; no other
+    script, module of the port or ``chip_smoke.py`` names them."""
+    scripts = sorted(p for p in (ROOT / "scripts").glob("torch_*.py")
+                     if p.name not in PARITY_TOOLS) + [
         ROOT / "scripts" / "k1_ablation.py", ROOT / "scripts" / "k3_ablation.py"]
     assert len(scripts) >= 6
+    users = scripts + sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for tool in PARITY_TOOLS:
+        assert "amcpy_tpu." in (ROOT / "scripts" / tool).read_text()
+        stem = tool.removesuffix(".py")
+        assert not [p.name for p in users if stem in p.read_text()], tool
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|msgpack)\b|amcpy_tpu\.", re.M)
     bad = [str(p.relative_to(ROOT)) for p in scripts if pattern.search(p.read_text())]
     assert not bad, bad

@@ -118,6 +118,7 @@ def test_cnn_vs_mlp_record_has_the_jax_keys(root, tmp_path):
               "--seeds", "1", "--out", str(out)]
     assert torch_cnn_vs_mlp.main([*common, "--families", "mlp,cnn,cnn_aug"]) == 0
     assert torch_cnn_wide_control.main(common) == 0
+    assert torch_cnn_wide_control.main([*common, "--dtype", "float32"]) == 0
     record = json.loads(out.read_text())
     jax = json.loads((ROOT / "metrics" / "cnn_vs_mlp.json").read_text())
     assert _keys(jax) <= _keys(record)
@@ -130,6 +131,16 @@ def test_cnn_vs_mlp_record_has_the_jax_keys(root, tmp_path):
             assert row[key]["jax"] == pytest.approx(
                 jax[arm].get(key, np.mean(jax[arm]["val_accuracy_per_seed"])))
             assert row[key]["gap"] == pytest.approx(row[key]["port"] - row[key]["jax"])
+    for arm in ("cnn", "cnn_aug", "cnn_wide_kernel_control",
+                "cnn_wide_kernel_control_float32"):
+        (layers,) = record[arm]["conv_bias_per_seed"]
+        assert len(layers) == 3 and all(b["product_std"] > 0 for b in layers)
+        assert record[arm]["device"]["type"] == "cpu"
+    assert record["cnn_wide_kernel_control"]["arch"]["dtype"] == "bfloat16"
+    assert record["cnn_wide_kernel_control_float32"]["arch"]["dtype"] == "float32"
+    row = record["vs_jax"]["cnn_wide_kernel_control_float32"]
+    assert row["val_accuracy_mean"]["jax"] == pytest.approx(
+        np.mean(jax["cnn_wide_kernel_control"]["val_accuracy_per_seed"]))
     inf = record["cnn_inference"]
     assert inf["batch"] == 6 * 16 * 8 and inf["ms_per_batch"] > 0 and inf["k3_route_ms_per_batch"] > 0
     assert inf["device"]["type"] == "cpu"
@@ -182,3 +193,62 @@ def test_default_device_raises_without_a_card(script, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="--device cpu"):
         script.main(["--root", str(tmp_path), "--out", str(tmp_path / "r.json")])
     assert not (tmp_path / "r.json").exists()
+
+
+def test_card_vs_cpu_runs_on_two_cpu_devices():
+    """``scripts/torch_training_card_vs_cpu.py``'s comparison with the CPU
+    in the card's place, at a small size: the two plain runs are the same
+    run (gap 0), the moved start gives a spread, every bar holds, and each
+    fault planted in the strided convolution is caught at the first step
+    its gradients reach (the flipped kernels' loss, both faults' conv
+    weight gradients)."""
+    from scripts.torch_training_card_vs_cpu import PLANTS, card_vs_cpu
+
+    for dtype in ("float32", "bfloat16"):
+        result = card_vs_cpu(dtype, "cpu", steps=6, n=128, batch=32)
+        assert result["ok"], result["failures"]
+        assert result["steps"] == 6 and max(result["loss_gap_per_step"]) == 0.0
+        assert max(result["loss_bar_per_step"]) > result["loss_bar_per_step"][0]
+        assert result["worst_tensor_gap_over_bar"] == 0.0
+        assert len(result["conv_bias"]["card"]) == 3
+        assert set(result["planted"]) == set(PLANTS)
+        for fault, got in result["planted"].items():
+            assert got["caught"], (dtype, fault)
+            first = [f for f in got["failures"] if " at step 1:" in f]
+            assert any(f.startswith("grad.conv.1.weight") for f in first), (dtype, fault)
+        assert any(f.startswith("loss at step 1:")
+                   for f in result["planted"]["kernels"]["failures"]), dtype
+
+
+def test_arms_cpu_runs_both_packages_and_merges(tmp_path):
+    """``scripts/torch_cnn_arms_cpu.py`` at a tiny size: each package's runs
+    and summary of two arms, the port-against-JAX rows with the one-seed
+    bar, both packages' bias gradients in bf16 and float32; then the two
+    arms split into two records and united again by ``--merge``."""
+    from scripts import torch_cnn_arms_cpu
+
+    tiny = ["--frames", "4", "--frame-size", "64", "--epochs", "1", "--seeds", "1"]
+    a, b = tmp_path / "a.json", tmp_path / "b.json"
+    assert torch_cnn_arms_cpu.main([*tiny, "--arms", "cnn,cnn_wide_kernel_control",
+                                    "--out", str(a)]) == 0
+    whole = json.loads(a.read_text())
+    assert set(whole["port_vs_jax"]) == {"cnn", "cnn_wide_kernel_control"}
+    for arm in whole["port_vs_jax"]:
+        for pkg in ("jax", "port"):
+            entry = whole["arms"][arm][pkg]
+            (run,) = entry["runs"]
+            assert np.asarray(run["curve"]).shape == (6, 16) and len(run["conv_bias"]) == 3
+            assert entry["val_accuracy_mean"] == run["val_accuracy"]
+        assert whole["port_vs_jax"][arm]["bar"] == torch_cnn_arms_cpu.ONE_SEED_BAR
+    assert [g["dtype"] for g in whole["bias_gradients"]] == ["bfloat16", "float32"]
+    assert all(g[pkg]["median_abs"] >= 0 for g in whole["bias_gradients"]
+               for pkg in ("jax", "port"))
+    c = tmp_path / "c.json"
+    b.write_text(json.dumps({**whole, "arms": {"cnn": whole["arms"]["cnn"]}}))
+    a.write_text(json.dumps({**whole, "arms": {
+        "cnn_wide_kernel_control": whole["arms"]["cnn_wide_kernel_control"]}}))
+    assert torch_cnn_arms_cpu.main(["--merge", str(a), str(b), "--out", str(c)]) == 0
+    merged = json.loads(c.read_text())
+    assert merged["port_vs_jax"] == whole["port_vs_jax"]
+    assert merged["bias_gradients"] == whole["bias_gradients"]
+    assert merged["arms"] == whole["arms"]

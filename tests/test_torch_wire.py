@@ -200,3 +200,45 @@ def test_run_extraction_with_int24_matches_jax(tmp_path):
         frac = _budget(got[m].reshape(-1, 18), want[m].reshape(-1, 18).astype(np.float64),
                        data[m].reshape(-1, 256), 2e-4, 2e-5)
         assert frac <= 1.0, m
+
+
+def _branch_cut_frames(tiny_q):
+    """Two BPSK frames at 26 dB, symbols on the real axis; sample 7 of the
+    first is (-1, ``tiny_q``): on the negative real side, its Q inside half
+    an int24 step of the frame's largest sample when ``tiny_q`` is small."""
+    rng = np.random.default_rng(17)
+    sym = rng.choice([-1.0, 1.0], (2, 256))
+    x = sym + 0.05 * (rng.standard_normal((2, 256)) + 1j * rng.standard_normal((2, 256)))
+    x[0, 7] = -1.0 + 1j * tiny_q
+    return x.astype(np.complex64)
+
+
+@pytest.mark.parametrize("tiny_q,flips", [(-1e-7, 1), (-1e-3, 0)])
+def test_int24_branch_cut_moves_both_packages_alike(tiny_q, flips):
+    """A sample on the negative real side whose Q rounds to +0 through the
+    int24 codec: its phase moves from -pi to +pi, in the JAX package and in
+    the port alike. Through the wire, feature 3 (the std of the phase)
+    moves by more than the oracle's whole budget in both packages, by the
+    same amount within the kernel bar (``2e-4 * term_scales + 2e-5 *
+    |want|``); feature 2 (the std of |phase|) by under 1 % of the budget.
+    With Q = -1e-3 the sample keeps its side and feature 3 stays within a
+    quarter of the budget (``tests/test_wire.py``). The gate's
+    ``branch_cut_flips`` counts the flip; the fault is the codec's, which
+    the two packages share byte for byte (``test_codec_is_the_jax_packages``)."""
+    from scripts.torch_wire_gate import branch_cut_flips
+
+    frames = _branch_cut_frames(tiny_q)
+    np.testing.assert_array_equal(branch_cut_flips(frames, "int24"), [flips, 0])
+    jax_move = (jax_extract_batch(frames, kernel="fused", wire="int24").astype(np.float64)
+                - jax_extract_batch(frames, kernel="fused", wire="f32"))
+    f32 = extract_batch(frames, kernel="fused", wire="f32", device="cpu").astype(np.float64)
+    port_move = extract_batch(frames, kernel="fused", wire="int24", device="cpu") - f32
+    scales = np.stack([term_scales(f) for f in frames])
+    budget = 1e-4 * scales + 1e-5 * np.abs(f32)
+    kernel_bar = 2 * budget
+    assert (np.abs(port_move - jax_move) <= kernel_bar).all()
+    for move in (jax_move, port_move):
+        third = np.abs(move[0, 2]) / budget[0, 2]
+        assert third > 1.0 if flips else third < 0.25, third
+        assert np.abs(move[:, 1] / budget[:, 1]).max() < 0.01
+        assert np.abs(move[1] / budget[1]).max() < 0.25
