@@ -7,9 +7,16 @@
 //    amcpy_tpu/ops/fused.py::_fused_kernel_entry (the same statistics plus
 //    gamma_max = max|DFT|^2 / N of the N1 x N2 factorization).
 //
-// K1 gives one thread block of 256 threads to one frame: frame_stats()
-// reads the frame from device memory once, keeps it (and its phase) in
-// shared memory and computes the statistics in three passes. K2 has two
+// K1 has two routes, chosen by N alone (amc_fused_route). The block route
+// gives one thread block of 256 threads to one frame: frame_stats() reads
+// the frame from device memory once, keeps it (and its phase) in shared
+// memory and computes the statistics in three passes. A frame too long for
+// one block's shared memory (12 bytes a sample: N above ~19,000) takes the
+// cluster route where N = C x M, 2 <= C <= 8, M a power of two in
+// [2048, 16384]: one thread-block cluster of C blocks a frame
+// (fused_cluster_kernel), block r holding samples r M .. r M + M - 1 as
+// the block route holds a whole frame, the blocks reading each other's
+// shared memory (DSMEM). Other frames fit neither route. K2 has two
 // routes, chosen by N alone (amc_stats_path): frames of N <= 2048 go to
 // stats_wg_kernel, one warpgroup a frame with the frame in registers and
 // the warpgroup's own named barriers; longer frames to stats_kernel, one
@@ -49,6 +56,26 @@
 //    the N1 rows against the N2 x N2 table, streamed from L2 through shared
 //    memory in K-blocks. N2 alone picks the path (amc_fused_gmax_path);
 //    there is no fallback between them.
+//  * The cluster route runs frame_stats on each block's slice, with every
+//    frame-wide quantity taken over the cluster at each pass boundary
+//    (cluster_combine: the block's totals into its own shared memory, a
+//    cluster barrier, then each block sums the C partials in rank order, so
+//    every block holds the same bits): the means, max|x| for the
+//    normalization and so mean_scale(), and the centred sums. The tiny-sample
+//    key stays a thread's own choice: polar() gives a sample that is not
+//    tiny exactly the plain root and phase, so it only saves work. The
+//    phase step after a slice's last sample reads the next block's first
+//    phase through DSMEM. gamma_max with n = r M + m, k = k1 + C k2:
+//      X[k1 + C k2] = sum_m W_M^{m k2} W_N^{m k1} sum_r x[r M + m] W_C^{r k1},
+//    so block k1 forms the C-point DFT over the slices at each m (W_C and
+//    W_N^{m k1} from the host's N-entry table), then runs the block route's
+//    FFT of length M on the result and the cluster takes the maximum. The
+//    C-point DFT overwrites the block's own slice, which the other blocks
+//    read: it goes chunk by chunk (kThreads * kGmaxPer places), each chunk
+//    read into registers by every block, then a cluster barrier, then
+//    written in place, so no place is written before every block has read
+//    it. A last cluster barrier keeps every block's shared memory alive
+//    until no block of its cluster reads it.
 //
 // Numerics (held to the plain PyTorch version, amcpy_tpu_torch/ops/features.py):
 //  * floor-mod: the wrapped phase difference is mod(d + pi, 2pi) - pi with
@@ -81,12 +108,15 @@
 // Every entry point launches on the stream it is given, allocates
 // nothing, and returns cudaGetLastError() (0 on success).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -108,6 +138,17 @@ constexpr int kTileRows = kTR * kRM;
 constexpr int kTileCols = kTC * kRN;
 constexpr int kKB = 32;  // rows of the N2 x N2 table staged per K-block
 constexpr size_t kSmemLimit = 232448;  // 227 KB a block may use on sm_90
+
+// The cluster route: C blocks a frame, 2 <= C <= kMaxCluster (the portable
+// cluster size), each holding a slice of M samples, M a power of two in
+// [kSliceMin, kSliceMax] (the longest power of two the block route holds)
+constexpr int kMaxCluster = 8;
+constexpr int kSliceMin = 2048;
+constexpr int kSliceMax = 16384;
+// places of the slice a thread carries in registers in one chunk of the
+// cluster's C-point DFT
+constexpr int kGmaxPer = 8;
+static_assert(kSliceMin % (kThreads * kGmaxPer) == 0, "whole chunks a slice");
 
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
@@ -315,25 +356,80 @@ __device__ __forceinline__ void for_samples(int n, F&& f) {
   }
 }
 
+// A block's totals that the other blocks of its cluster read: one slot a
+// reduction, each written once.
+struct ClusterXch {
+  float s1[4];
+  float v[kRedValues];
+  float u[5];
+  float g;
+};
+
+// The cluster's totals from each block's block_reduce() result t (lane j
+// holds total j, j < V): thread j writes its block's total j into slot,
+// and after a cluster barrier lane j of every warp sums (with kLastIsMax:
+// the last value, takes the maximum of) total j over the C blocks in rank
+// order, the same bits in every block.
+template <int V, bool kLastIsMax = false>
+__device__ __forceinline__ float cluster_combine(float t, float* slot) {
+  cg::cluster_group cl = cg::this_cluster();
+  if (threadIdx.x < V) slot[threadIdx.x] = t;
+  cl.sync();
+  const int lane = threadIdx.x & 31;
+  float r = 0.f;
+  if (lane < V) {
+    const bool mx = kLastIsMax && lane == V - 1;
+    const int ranks = static_cast<int>(cl.num_blocks());
+    r = cl.map_shared_rank(slot, 0)[lane];
+    for (int k = 1; k < ranks; ++k) {
+      const float o = cl.map_shared_rank(slot, k)[lane];
+      r = mx ? fmaxf(r, o) : r + o;
+    }
+  }
+  return r;
+}
+
+// The phase after sample k of n: ph[k + 1], or on the cluster route after
+// a slice's last sample the next block's first phase (halo)
+template <bool kCluster>
+__device__ __forceinline__ float next_phase(const float* __restrict__ ph,
+                                            int k, int n, float halo) {
+  if constexpr (kCluster) return k + 1 < n ? ph[k + 1] : halo;
+  return ph[k + 1];
+}
+
 // Features 2..18 of one frame into out[1..17] (written by thread 0). The
 // frame's I and Q (N samples each, device memory) are read once into the
 // shared xi, xq (at sw(k)); ph receives the phase; red holds kRedFloats.
 // kPer > 0 (N <= kThreads * kPer) keeps each sample's normalized amplitude
 // and wrapped frequency in registers. Called by every thread of the block; on
 // return the last barrier has passed every read of xi, xq and ph.
-template <int kPer>
+// kCluster: the block holds slice r (its cluster rank) of n samples of a
+// frame of C n; the totals are the cluster's (through xch), the phase step
+// after the slice reads block r + 1's first phase, and only block 0 writes.
+template <int kPer, bool kCluster = false>
 __device__ void frame_stats(const float* __restrict__ gi,
                             const float* __restrict__ gq,
                             float* __restrict__ xi, float* __restrict__ xq,
                             float* __restrict__ ph, float* red, int n,
-                            bool normalize, float* __restrict__ out) {
+                            bool normalize, float* __restrict__ out,
+                            ClusterXch* xch = nullptr) {
   constexpr int kSlots = kPer > 0 ? kPer : 1;
   float cn_c[kSlots];  // pass 1: |x|; from pass 2 on: |x| / mean|x| - 1
   float fr_c[kSlots];  // wrapped frequency of the step k -> k+1
   float* red0 = red;
   float* red1 = red + kWarps * kRedValues;
-  const float fn = static_cast<float>(n);
-  const float fn1 = static_cast<float>(n - 1);
+  int len = n;             // samples of the frame
+  int rank = 0;            // this block's slice
+  bool tail_step = false;  // the slice's last sample has a next one
+  if constexpr (kCluster) {
+    cg::cluster_group cl = cg::this_cluster();
+    rank = static_cast<int>(cl.block_rank());
+    len = n * static_cast<int>(cl.num_blocks());
+    tail_step = rank + 1 < static_cast<int>(cl.num_blocks());
+  }
+  const float fn = static_cast<float>(len);
+  const float fn1 = static_cast<float>(len - 1);
 
   // pass 1: the frame into shared memory; amplitude, phase; sums for the
   // means and max |x| in one reduction
@@ -366,7 +462,13 @@ __device__ void frame_stats(const float* __restrict__ gi,
     });
   }
   // its barrier also publishes xi, xq, ph
-  const float t1 = block_reduce<4, true>(s1, red0);
+  float t1 = block_reduce<4, true>(s1, red0);
+  float halo = 0.f;
+  if constexpr (kCluster) {
+    // its cluster barrier publishes every block's ph
+    t1 = cluster_combine<4, true>(t1, xch->s1);
+    if (tail_step) halo = cg::this_cluster().map_shared_rank(ph, rank + 1)[0];
+  }
   const float sum_a = lane_value(t1, 0);
   const float mean_a = sum_a / fn;
   const float mean_ap = lane_value(t1, 1) / fn;
@@ -400,8 +502,8 @@ __device__ void frame_stats(const float* __restrict__ gi,
     v[2] += fabsf(cn);
     v[3] += cn;
     float f = 0.f;
-    if (k + 1 < n) {
-      f = wrapped_freq(ph[k + 1] - p);
+    if (k + 1 < n || tail_step) {
+      f = wrapped_freq(next_phase<kCluster>(ph, k, n, halo) - p);
       v[4] += f;
     }
     if constexpr (kPer > 0) {
@@ -433,7 +535,8 @@ __device__ void frame_stats(const float* __restrict__ gi,
     v[17] += x2r * a4;
     v[18] += a2 * a4;
   });
-  const float t2 = block_reduce<kRedValues>(v, red1);
+  float t2 = block_reduce<kRedValues>(v, red1);
+  if constexpr (kCluster) t2 = cluster_combine<kRedValues>(t2, xch->v);
   const float mean_acn = lane_value(t2, 2) / fn;
   const float mean_cn = lane_value(t2, 3) / fn;
   const float f_mu = lane_value(t2, 4) / fn1;
@@ -456,12 +559,12 @@ __device__ void frame_stats(const float* __restrict__ gi,
     const float c2 = c * c;
     u[1] += c2;
     u[2] += c2 * c2;
-    if (k + 1 < n) {
+    if (k + 1 < n || tail_step) {
       float f;
       if constexpr (kPer > 0) {
         f = fr_c[j];
       } else {
-        f = wrapped_freq(ph[k + 1] - ph[k]);
+        f = wrapped_freq(next_phase<kCluster>(ph, k, n, halo) - ph[k]);
       }
       const float fc = f - f_mu;
       const float fc2 = fc * fc;
@@ -469,15 +572,20 @@ __device__ void frame_stats(const float* __restrict__ gi,
       u[4] += fc2 * fc2;
     }
   });
-  const float t3 = block_reduce<5>(u, red0);
+  float t3 = block_reduce<5>(u, red0);
+  if constexpr (kCluster) t3 = cluster_combine<5>(t3, xch->u);
 
   // the features from warp 0's copies of the totals, written by thread 0
+  // (of block 0 on the cluster route)
   if (threadIdx.x >= 32) return;
 #pragma unroll
   for (int j = 0; j < kRedValues; ++j) v[j] = lane_value(t2, j);
 #pragma unroll
   for (int j = 0; j < 5; ++j) u[j] = lane_value(t3, j);
   if (threadIdx.x != 0) return;
+  if constexpr (kCluster) {
+    if (rank != 0) return;
+  }
   const float f2 = sqrtf(v[0] / fn1);
   const float f3 = sqrtf(v[1] / fn1);
   const float f4 = sqrtf(u[0] / fn1);
@@ -1355,6 +1463,104 @@ __global__ void __launch_bounds__(kThreads, kFft ? kMinBlocks : 2)
   }
 }
 
+// gamma_max on the cluster route, for block k1 = rank of C = ranks blocks,
+// each holding an m-sample slice in xr/xi (at sw()): this thread's share of
+// max |X[k1 + C k2]|^2 over k2 < m. twn holds W_N^j (j < N = C m), tws
+// W_m^j (j < m). Overwrites the slice; on return no block of the cluster
+// reads it again.
+__device__ float cluster_gmax(float* __restrict__ xr, float* __restrict__ xi,
+                              const float2* __restrict__ twn,
+                              const float2* __restrict__ tws, int m, int rank,
+                              int ranks) {
+  cg::cluster_group cl = cg::this_cluster();
+  // W_C^{q k1} = W_N^{((q k1) mod C) m}
+  float2 wc[kMaxCluster];
+#pragma unroll
+  for (int q = 0; q < kMaxCluster; ++q) {
+    wc[q] = q < ranks ? __ldg(twn + ((q * rank) % ranks) * m)
+                      : make_float2(0.f, 0.f);
+  }
+  for (int c0 = 0; c0 < m; c0 += kThreads * kGmaxPer) {
+    // y[p] = W_N^{p k1} sum_q x[q m + p] W_C^{q k1} at this thread's places
+    // of the chunk, read from every slice
+    float yr[kGmaxPer];
+    float yi[kGmaxPer];
+#pragma unroll
+    for (int j = 0; j < kGmaxPer; ++j) {
+      const int p = c0 + j * kThreads + threadIdx.x;
+      float ar = 0.f;
+      float ai = 0.f;
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q) {
+        if (q < ranks) {
+          const float a = cl.map_shared_rank(xr, q)[sw(p)];
+          const float b = cl.map_shared_rank(xi, q)[sw(p)];
+          ar += wc[q].x * a - wc[q].y * b;
+          ai += wc[q].x * b + wc[q].y * a;
+        }
+      }
+      const float2 w = __ldg(twn + p * rank);
+      yr[j] = ar * w.x - ai * w.y;
+      yi[j] = ar * w.y + ai * w.x;
+    }
+    // every block has read these places of every slice
+    cl.sync();
+#pragma unroll
+    for (int j = 0; j < kGmaxPer; ++j) {
+      const int p = c0 + j * kThreads + threadIdx.x;
+      xr[sw(p)] = yr[j];
+      xi[sw(p)] = yi[j];
+    }
+  }
+  __syncthreads();
+  // the block route's FFT of length m (a power of two: no direct stage)
+  return gmax_fft(xr, xi, nullptr, tws, nullptr, nullptr, nullptr, nullptr, m,
+                  8, m / 8);
+}
+
+// K1's cluster route: one cluster of C blocks per frame of the separate
+// (B, N) I and Q planes, N = C m; block r of the cluster of frame f holds
+// samples r m .. r m + m - 1 of frame f (blockIdx.x = f C + r).
+__global__ void __launch_bounds__(kThreads, 2)
+    fused_cluster_kernel(const float* __restrict__ gi,
+                         const float* __restrict__ gq,
+                         const float2* __restrict__ twn,
+                         const float2* __restrict__ tws,
+                         float* __restrict__ out, int n, int m, int normalize) {
+  extern __shared__ float smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int ranks = static_cast<int>(cl.num_blocks());
+  const int rank = static_cast<int>(cl.block_rank());
+  const int np = plane_floats(m);
+  float* xi = smem;
+  float* xq = smem + np;
+  float* ph = smem + 2 * np;
+  float* red = ph + m;
+  auto* xch = reinterpret_cast<ClusterXch*>(red + kRedFloats);
+  const size_t f = blockIdx.x / ranks;
+  float* row = out + f * kNumFeatures;
+  const size_t at = f * n + static_cast<size_t>(rank) * m;
+  frame_stats<0, true>(gi + at, gq + at, xi, xq, ph, red, m, normalize != 0,
+                       row, xch);
+  float mx = cluster_gmax(xi, xq, twn, tws, m, rank, ranks);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  }
+  // the last reduction (pass 3) used the first buffer and barriers have
+  // passed since, so the second takes the block's maximum
+  float* red1 = red + kWarps * kRedValues;
+  if ((threadIdx.x & 31) == 0) red1[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  float g = red1[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) g = fmaxf(g, red1[w]);
+  g = cluster_combine<1, true>(g, &xch->g);
+  if (rank == 0 && threadIdx.x == 0) row[0] = g / static_cast<float>(n);
+  // no block leaves while another may still read its shared memory
+  cl.sync();
+}
+
 size_t fused_smem_bytes(int n, bool fft) {
   return (static_cast<size_t>(2) * plane_floats(n) + n + kRedFloats +
           (fft ? 0 : 2 * kKB * kTileCols)) *
@@ -1373,6 +1579,70 @@ cudaError_t set_smem(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// K1's block route can hold a frame of N = n1 * n2 samples in shared memory
+bool block_fits(int n1, int n2) {
+  return fused_smem_bytes(n1 * n2, is_pow2(n2)) <= kSmemLimit;
+}
+
+// one block of the cluster route: the block route's FFT-path layout of an
+// m-sample slice, then the block's ClusterXch
+size_t cluster_smem_bytes(int m) {
+  return fused_smem_bytes(m, true) + sizeof(ClusterXch);
+}
+static_assert((3 * kSliceMax + kRedFloats) * sizeof(float) +
+                      sizeof(ClusterXch) <= kSmemLimit,
+              "the longest slice fits one block");
+
+// ops/fft.py::best_factorization: N1 x N2 = n, both >= 8, N1 <= sqrt(n),
+// the smallest N1 with N2 <= 512 where there is one; false where none
+bool best_split(int n, int* n1, int* n2) {
+  if (n < 64) return false;
+  const int start = n > 8 * 512 ? (n + 511) / 512 : 8;
+  const int limit = static_cast<int>(sqrt(static_cast<double>(n)));
+  const int starts[2] = {start, 8};
+  for (const int lo : starts) {
+    for (int a = lo; a <= limit; ++a) {
+      if (n % a == 0 && n / a >= 8) {
+        *n1 = a;
+        *n2 = n / a;
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+// C of the cluster route for n = C M: the smallest 2 <= C <= kMaxCluster
+// with M a power of two in [kSliceMin, kSliceMax]; 0 where there is none
+int cluster_size(int n) {
+  for (int c = 2; c <= kMaxCluster; ++c) {
+    const int m = n / c;
+    if (n % c == 0 && is_pow2(m) && m >= kSliceMin && m <= kSliceMax) {
+      return c;
+    }
+  }
+  return 0;
+}
+
+// The launch of the cluster route for batches of b frames of n = c m
+// samples: b c blocks in clusters of (c, 1, 1). attr is the storage of the
+// config's one attribute.
+cudaLaunchConfig_t cluster_config(int b, int c, size_t smem, cudaStream_t st,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(b) * c, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1381,10 +1651,38 @@ extern "C" {
 // FFT (N2 a power of two), 0 for the direct stage-2 product.
 int amc_fused_gmax_path(int n2) { return is_pow2(n2) ? 1 : 0; }
 
-// 1 if K1 can hold a frame of N = n1 * n2 samples in shared memory.
-int amc_fused_fits(int n1, int n2) {
-  return fused_smem_bytes(n1 * n2, amc_fused_gmax_path(n2) != 0) <=
-         kSmemLimit;
+// K1's route for frames of n samples: 1, the block route, where n has an
+// N1 x N2 factorization (best_split) that block_fits; else 2, the
+// cluster route, where cluster_size(n) finds a C; else 0, neither. *c
+// receives C (1 on the block route, 0 on neither).
+int amc_fused_route(int n, int* c) {
+  int n1 = 0;
+  int n2 = 0;
+  if (best_split(n, &n1, &n2) && block_fits(n1, n2)) {
+    *c = 1;
+    return 1;
+  }
+  *c = cluster_size(n);
+  return *c != 0 ? 2 : 0;
+}
+
+// Clusters of the cluster route for frames of n samples that the card can
+// hold at once (cudaOccupancyMaxActiveClusters; 0: it cannot launch one),
+// or a negative CUDA error, -cudaErrorInvalidValue where n is not on the
+// route.
+int amc_fused_cluster_occupancy(int n) {
+  const int c = cluster_size(n);
+  if (c == 0) return -static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = cluster_smem_bytes(n / c);
+  cudaError_t err = set_smem(fused_cluster_kernel, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(1, c, smem, nullptr, &attr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(
+      &clusters, reinterpret_cast<const void*>(fused_cluster_kernel), &cfg);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return clusters;
 }
 
 // 1 if K2 can hold a frame of size n (its block route keeps the frame in
@@ -1395,25 +1693,43 @@ int amc_stats_fits(int n) { return stats_smem_bytes(n) <= kSmemLimit; }
 // in registers, 2 <= n <= 2048), 0 for the block kernel (longer frames).
 int amc_stats_path(int n) { return n >= 2 && n <= kWgMaxN ? 1 : 0; }
 
-// K1. tw is the (N, 2) table of W_N^m for the FFT path (else unused); w1r,
-// w1i, twr, twi the W_N1 and N1 x N2 twiddle tables, read where N1 is not a
-// power of two or N2 is not; w2r, w2i the N2 x N2 table, read by the direct
-// path only. A table that the path does not read may be null.
+// K1, on the block route where N1 x N2 fits one block (block_fits),
+// else on the cluster route where N has one (cluster_size). tw is the
+// (N, 2) table of W_N^m for the FFT path and the cluster route (else
+// unused); tws the (M, 2) table of W_M^m of the cluster route's slices of M
+// = N / C samples (else unused); w1r, w1i, twr, twi the W_N1 and N1 x N2
+// twiddle tables, read on the block route where N1 is not a power of two
+// or N2 is not; w2r, w2i the N2 x N2 table, read by the direct path only.
+// A table that the route and path do not read may be null.
 int amc_fused_features(const float* i, const float* q, const float* tw,
-                       const float* w1r, const float* w1i, const float* twr,
-                       const float* twi, const float* w2r, const float* w2i,
-                       float* out, int b, int n, int n1, int n2, int normalize,
-                       void* stream) {
-  if (n1 < 1 || n2 < 8 || n1 * n2 != n || !amc_fused_fits(n1, n2)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                       const float* tws, const float* w1r, const float* w1i,
+                       const float* twr, const float* twi, const float* w2r,
+                       const float* w2i, float* out, int b, int n, int n1,
+                       int n2, int normalize, void* stream) {
+  const bool block =
+      n1 >= 1 && n2 >= 8 && n1 * n2 == n && block_fits(n1, n2);
+  const int c = block ? 1 : cluster_size(n);
+  if (c == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (b <= 0) return 0;
-  const bool fft = amc_fused_gmax_path(n2) != 0;
-  const bool cached = n <= kThreads * kCached;
-  const size_t smem = fused_smem_bytes(n, fft);
   const auto* tw2 = reinterpret_cast<const float2*>(tw);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  if (!block) {
+    const int m = n / c;
+    const size_t smem = cluster_smem_bytes(m);
+    err = set_smem(fused_cluster_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(b, c, smem, st, &attr);
+    err = cudaLaunchKernelEx(&cfg, fused_cluster_kernel, i, q, tw2,
+                             reinterpret_cast<const float2*>(tws), out, n, m,
+                             normalize);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const bool fft = amc_fused_gmax_path(n2) != 0;
+  const bool cached = n <= kThreads * kCached;
+  const size_t smem = fused_smem_bytes(n, fft);
 #define AMC_LAUNCH_K1(PER, FFT)                                             \
   err = set_smem(fused_kernel<PER, FFT>, smem);                             \
   if (err != cudaSuccess) return static_cast<int>(err);                     \

@@ -161,10 +161,17 @@ def _gmax_matmul_impl(
     return power.reshape(*lead, n).amax(dim=-1) / n
 
 
+#: the longest second factor whose N2 x N2 table the four-step product
+#: builds (16.8 M entries); a longer one (N = 2^19 factors as 8 x 65536, a
+#: 64 GiB table in float64) takes the FFT
+MATMUL_MAX_N2 = 4096
+
+
 def gmax_matmul(i: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """max |DFT|^2 / N via the four-step factorization; the FFT when the
-    frame size has no usable factorization."""
+    frame size has no usable factorization: none at all, or one whose N2
+    exceeds :data:`MATMUL_MAX_N2`."""
     fac = best_factorization(i.shape[-1])
-    if fac is None:
+    if fac is None or fac[1] > MATMUL_MAX_N2:
         return gmax_fft(i, q)
     return _gmax_matmul_impl(i, q, fac[0], fac[1])

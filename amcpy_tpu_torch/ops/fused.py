@@ -2,13 +2,27 @@
 
 Replaces the Pallas kernel ``amcpy_tpu/ops/fused.py::_fused_kernel_entry``
 (wrapper ``extract_features_fused``). The kernel, ``amc_fused_features`` in
-``csrc/features.cu``, gives one thread block to each frame, reads its
-separate I and Q planes once, computes the 17 statistics and gamma_max =
-max|DFT|^2 / N. Where N2 of :func:`best_factorization` is a power of two
-(every power-of-two N) gamma_max is an FFT in the block (its plan is
-:func:`amcpy_tpu_torch.ops.fft.fft_plan`); else the direct two-stage
-N1 x N2 DFT. :func:`gmax_path` says which. The tables are built on the host
-and cached on the device.
+``csrc/features.cu``, reads each frame's separate I and Q planes once and
+computes the 17 statistics and gamma_max = max|DFT|^2 / N. It has two
+routes, chosen by N alone (:func:`fused_route`, the library's
+``amc_fused_route``):
+
+* ``"block"``: one thread block a frame, wherever an N1 x N2 factorization
+  of :func:`best_factorization` fits one block's shared memory (N up to
+  ~19,000). Where N2 is a power of two (every power-of-two N) gamma_max is
+  an FFT in the block (its plan is :func:`amcpy_tpu_torch.ops.fft.fft_plan`);
+  else the direct two-stage N1 x N2 DFT. :func:`gmax_path` says which.
+* ``"cluster"``: one thread-block cluster of C blocks a frame, for longer
+  frames of N = C x M, 2 <= C <= 8 (the smallest that serves), M a power of
+  two in [2048, 16384]; block r holds samples r M .. r M + M - 1 and the
+  blocks read each other's shared memory.
+
+Frames that neither route holds (``"none"``: no factorization, or too long
+and not of that form) make :func:`extract_features_fused` raise;
+:func:`extract_features_fused_any` sends them, by shape and before any
+launch, to the plain extractor, as the JAX package's fused route takes its
+XLA extractor where Mosaic does not compile its kernel. The tables are
+built on the host and cached on the device.
 
 A CUDA tensor launches the kernel or raises. A CPU tensor takes the plain
 PyTorch version (:func:`amcpy_tpu_torch.ops.features._extract_planar` with
@@ -18,22 +32,41 @@ the four-step DFT), which is what the CPU tests run and what
 
 from __future__ import annotations
 
+import ctypes
+from functools import lru_cache
+
 import numpy as np
 import torch
 
 from amcpy_tpu_torch.ops.features import NUM_FEATURES, _extract_planar
 from amcpy_tpu_torch.ops.fft import (
+    _is_pow2,
     best_factorization,
     device_fft_twiddles,
     device_tables,
 )
 
 __all__ = [
+    "cluster_occupancy",
     "extract_features_fused",
     "extract_features_fused_any",
+    "fused_route",
     "gmax_path",
+    "library_route",
     "split_planes",
 ]
+
+#: bytes of shared memory a block may use on an H100 (``kSmemLimit``)
+SMEM_LIMIT = 232448
+#: floats of the block route's reduction scratch (``kRedFloats``) and of the
+#: direct path's table tiles (``2 * kKB * kTileCols``)
+_RED_FLOATS = 2 * 8 * 19
+_DIRECT_FLOATS = 2 * 32 * 128
+#: the cluster route: C in [2, CLUSTER_MAX], slices of M in [SLICE_MIN, SLICE_MAX]
+CLUSTER_MAX = 8
+SLICE_MIN, SLICE_MAX = 2048, 16384
+#: ``amc_fused_route``'s codes
+_LIB_ROUTES = {1: "block", 2: "cluster", 0: "none"}
 
 
 def split_planes(frames: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -44,6 +77,56 @@ def split_planes(frames: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         np.ascontiguousarray(frames.real, dtype=np.float32),
         np.ascontiguousarray(frames.imag, dtype=np.float32),
     )
+
+
+def _block_fits(n1: int, n2: int) -> bool:
+    """The library's ``block_fits``: the frame, its phase and the block
+    route's scratch within one block's shared memory."""
+    n = n1 * n2
+    floats = 2 * ((n + 31) & ~31) + n + _RED_FLOATS
+    if not _is_pow2(n2):
+        floats += _DIRECT_FLOATS
+    return 4 * floats <= SMEM_LIMIT
+
+
+def fused_route(n: int) -> tuple[str, int]:
+    """The route ``amc_fused_features`` takes for frames of ``n`` samples,
+    and its cluster size C, as the library rules (``amc_fused_route``):
+    ``("block", 1)`` where :func:`best_factorization` gives a split that
+    fits one block; else ``("cluster", C)`` for the smallest 2 <= C <= 8
+    with N / C a power of two in [2048, 16384]; else ``("none", 0)``. A
+    plain function: it needs no card and builds nothing."""
+    fac = best_factorization(n)
+    if fac is not None and _block_fits(*fac):
+        return "block", 1
+    for c in range(2, CLUSTER_MAX + 1):
+        m, rest = divmod(n, c)
+        if rest == 0 and _is_pow2(m) and SLICE_MIN <= m <= SLICE_MAX:
+            return "cluster", c
+    return "none", 0
+
+
+def library_route(n: int) -> tuple[str, int]:
+    """``amc_fused_route`` of the built library (builds it at first use)."""
+    from amcpy_tpu_torch.ops import _build
+
+    c = ctypes.c_int(-1)
+    code = _build.load("features").amc_fused_route(n, ctypes.byref(c))
+    return _LIB_ROUTES[code], c.value
+
+
+@lru_cache(maxsize=None)
+def cluster_occupancy(n: int, device_index: int) -> int:
+    """Clusters of the cluster route at ``n`` samples a frame that card
+    ``device_index`` holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    from amcpy_tpu_torch.ops import _build
+
+    lib = _build.load("features")
+    with torch.cuda.device(device_index):
+        clusters = lib.amc_fused_cluster_occupancy(n)
+    if clusters < 0:
+        _build.check(lib, -clusters, "amc_fused_cluster_occupancy")
+    return clusters
 
 
 def _check_planes(i: torch.Tensor, q: torch.Tensor) -> None:
@@ -64,16 +147,23 @@ def extract_features_fused(
 ) -> torch.Tensor:
     """All 18 features from separate I/Q planes ``(B, N)``; ``(B, 18)``.
 
-    Raises ``ValueError`` when N has no N1 x N2 factorization (callers
-    route those shapes to the plain extractor, see
+    Raises ``ValueError`` when N fits neither route (:func:`fused_route`;
+    callers route those shapes to the plain extractor, see
     :func:`extract_features_fused_any`). ``extract_features_fused.launches``
-    counts kernel launches.
+    counts kernel launches, ``launches_by_route`` the same by route.
     """
     _check_planes(i, q)
     b, n = i.shape
     fac = best_factorization(n)
     if fac is None:
         raise ValueError(f"frame size {n} has no N1 x N2 factorization")
+    route, c = fused_route(n)
+    if route == "none":
+        raise ValueError(
+            f"frame size {n} fits neither route of the fused kernel: not one "
+            f"block's shared memory, and not C x M with 2 <= C <= {CLUSTER_MAX} "
+            f"and M a power of two in [{SLICE_MIN}, {SLICE_MAX}]"
+        )
     n1, n2 = fac
     if i.device.type == "cpu":
         return _extract_planar(
@@ -89,39 +179,53 @@ def extract_features_fused(
     from amcpy_tpu_torch.ops import _build
 
     lib = _build.load("features")
-    if not lib.amc_fused_fits(n1, n2):
-        raise ValueError(
-            f"frame size {n} does not fit the fused kernel's shared memory"
+    if route == "cluster" and cluster_occupancy(n, i.device.index or 0) == 0:
+        raise RuntimeError(
+            f"the card cannot hold one cluster of {c} blocks of the fused "
+            f"kernel at frame size {n}"
         )
     out = torch.empty((b, NUM_FEATURES), dtype=torch.float32, device=i.device)
     if b == 0:
         return out
-    # W_N^m for the FFT path, the N2 x N2 table for the direct one, null
-    # where the path does not read it; W_N1 and the twiddle always
-    fft = lib.amc_fused_gmax_path(n2)
-    w1r, w1i, twr, twi, w2r, w2i = device_tables(n1, n2, i.device)
-    tw = device_fft_twiddles(n, i.device).data_ptr() if fft else 0
-    w2 = (0, 0) if fft else (w2r.data_ptr(), w2i.data_ptr())
+    # block route: W_N^m for the FFT path, the N2 x N2 table for the direct
+    # one, W_N1 and the twiddle always; cluster route: W_N^m and W_M^m of
+    # its slices of M = N / C. Null where the route does not read a table.
+    tw = tws = 0
+    w1 = (0, 0, 0, 0)
+    w2 = (0, 0)
+    if route == "cluster":
+        tw = device_fft_twiddles(n, i.device).data_ptr()
+        tws = device_fft_twiddles(n // c, i.device).data_ptr()
+    else:
+        fft = lib.amc_fused_gmax_path(n2)
+        w1r, w1i, twr, twi, w2r, w2i = device_tables(n1, n2, i.device)
+        w1 = tuple(t.data_ptr() for t in (w1r, w1i, twr, twi))
+        if fft:
+            tw = device_fft_twiddles(n, i.device).data_ptr()
+        else:
+            w2 = (w2r.data_ptr(), w2i.data_ptr())
     with torch.cuda.device(i.device):
         err = lib.amc_fused_features(
-            i.data_ptr(), q.data_ptr(), tw,
-            *(t.data_ptr() for t in (w1r, w1i, twr, twi)), *w2,
+            i.data_ptr(), q.data_ptr(), tw, tws, *w1, *w2,
             out.data_ptr(), b, n, n1, n2, int(normalize_scale),
             torch.cuda.current_stream(i.device).cuda_stream,
         )
     _build.check(lib, err, "amc_fused_features")
     extract_features_fused.launches += 1
+    extract_features_fused.launches_by_route[route] += 1
     return out
 
 
 extract_features_fused.launches = 0
+#: the same launches, by the route the library took (:func:`fused_route`)
+extract_features_fused.launches_by_route = {"block": 0, "cluster": 0}
 
 
 def gmax_path(n: int) -> str:
-    """How the kernel computes gamma_max for frames of ``n`` samples, as
-    its library reports it: ``"fft"`` (the in-block FFT) or ``"direct"``
-    (the N2 x N2 table product). Builds the library at first use; raises
-    ``ValueError`` when ``n`` has no N1 x N2 factorization."""
+    """How the kernel computes gamma_max for frames of ``n`` samples on the
+    block route, as its library reports it: ``"fft"`` (the in-block FFT) or
+    ``"direct"`` (the N2 x N2 table product). Builds the library at first
+    use; raises ``ValueError`` when ``n`` has no N1 x N2 factorization."""
     fac = best_factorization(n)
     if fac is None:
         raise ValueError(f"frame size {n} has no N1 x N2 factorization")
@@ -138,9 +242,10 @@ def extract_features_fused_any(
     gmax_mode: str = "matmul",
 ) -> torch.Tensor:
     """The fused route for any frame size: :func:`extract_features_fused`,
-    or the plain extractor when N has no N1 x N2 factorization (the only
+    or the plain extractor where N fits neither of its routes
+    (:func:`fused_route`), decided by shape before any launch (the only
     reroute; ``extract_features_fused_any.reroutes`` counts it)."""
-    if best_factorization(i.shape[-1]) is None:
+    if fused_route(i.shape[-1])[0] == "none":
         extract_features_fused_any.reroutes += 1
         return _extract_planar(
             i, q, normalize_scale=normalize_scale, compute_gmax=True,

@@ -12,11 +12,15 @@ Phases, each printing one JSON line:
 3. kernels — each CUDA kernel against its plain PyTorch version on the
    card: K1 and K2 on numpy-seeded Gaussian frames with a per-frame scale
    spread of exp(U(-6, 6)) and a few frames holding -0.0 samples, within
-   2e-4 * term_scales + 2e-5 * |want| per feature, K1 at frame sizes that
-   take each of its gamma_max paths (the in-block FFT where N2 is a power
-   of two: 256 ... 16384 and 12288 = 24 x 512; the direct stage 2 at
-   1000 = 8 x 125 and 88 = 8 x 11), each check printing its path and
-   gamma_max's own share of the tolerance; K2 on both of its routes
+   2e-4 * term_scales + 2e-5 * |want| per feature, K1 on its block route
+   at frame sizes that take each of its gamma_max paths (the in-block FFT
+   where N2 is a power of two: 256 ... 16384 and 12288 = 24 x 512; the
+   direct stage 2 at 1000 = 8 x 125 and 88 = 8 x 11) and on its cluster
+   route at C = 2 ... 8 (``K1_CHECKS``: 20480 ... 131072), each check
+   printing its route (asserted against the launch counter and the
+   library's ``amc_fused_route``), its path or cluster size and the
+   clusters the card holds at once, and gamma_max's own share of the
+   tolerance; K2 on both of its routes
    (``K2_CHECKS``: the warpgroup kernel up to 2048 samples, with 16-byte
    and with scalar loads and a ragged last block, the block kernel above),
    each check printing the route the launch took; K3 (the CNN trunk) on the same
@@ -26,7 +30,9 @@ Phases, each printing one JSON line:
    time axes (5 x 1000, 3 x 40) and small batches, and (16, 48, 32, 16) on
    the mma.sync kernel, each check printing the kernel that ran; times
    of the kernel, of the plain version, of one PyTorch library call where
-   one computes the same function, and for K3 of the module forward;
+   one computes the same function, and for K3 of the module forward (K1's
+   cluster route at 128 x 65536, the 4096 x 2048 row's samples, and at
+   64 x 131072);
 4. extraction — the main path: a numpy-made ``all_modulations.mat`` at the
    default config (6 modulations x 16 SNR x 1000 frames x 2048 samples)
    through ``run_extraction`` with ``kernel="auto"``; six artifacts of
@@ -176,9 +182,20 @@ Phases, each printing one JSON line:
    each step 4 times the devices' own spreads up to that step, or the
    floors; the biases within 4 of the CPU's and below their product's
    std), or where a fault planted in the card's strided convolution (its
-   kernels, or its weights' gradient, flipped in time) passes them.
+   kernels, or its weights' gradient, flipped in time) passes them;
+17. long_frames — frames of 65,536 samples, past one block's shared
+   memory, on K1's cluster route (C = 4): ``extract --from-synthetic 17``
+   through ``cli.main`` at 16 frames a (modulation, SNR) block (1,536 x
+   65536, 0.8 GB of planes on the card), its artifacts finite, 64 random
+   rows against the plain extractor on the same frames drawn again, its
+   frames/s and samples/s (command wall and the extraction stages); the
+   JAX MLP fixture served by ``AMCPipeline`` on those 64 frames against
+   the plain pipeline (argmax identical, logits within 1e-3); frames of
+   2^19 samples, which fit neither route: ``extract_features_fused``
+   raises and ``extract_features_fused_any`` answers through its counted
+   reroute, equal to the plain extractor, with no launch.
 
-Nineteen paths are driven through the kernels: extraction and serving with
+Twenty-one paths are driven through the kernels: extraction and serving with
 ``kernel="auto"`` (both through K1), serving with ``kernel="pallas"``
 (through K2), CNN serving (through K3), serving of phase 9's trained
 CNN (through K3), the three servers of phase 11 (the MLPs through K1, the
@@ -187,13 +204,16 @@ CNN through K3), the int24 serving program and extraction of phase 12
 ``extract --profile``, ``full`` and ``parity`` (through K1), phase 13's
 synthetic extraction (through K1) and its ``kernel="pallas"`` run (through
 K2), phase 14's round-robin extraction
-through the process group (through K1) and phase 15's wire gate (through K1
-and K2). Every launch counter is set to 0 just before each path
-and read just after it; the run fails if a path did not launch its kernel.
+through the process group (through K1), phase 15's wire gate (through K1
+and K2) and phase 17's extraction and serving (through K1's cluster
+route). Every launch counter is set to 0 just before each path and read
+just after it; the run fails if a path did not launch its kernel, took a
+reroute, or (the paths of 2048-sample frames) left K1's block route.
 The checked call of each request also records its own launches; phases 8
 and 9 record theirs (training runs no kernel of the port). Then come the
 ``{"kernels": [...]}`` line (``launches`` summed over the paths that run
-through the kernel, and per path), nvidia-smi's name and power limit, and
+through the kernel, and per path; K1 in a row per route, each with
+``launches_by_route``), nvidia-smi's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and
 the process exits non-zero; without a CUDA device it exits 1 and prints no
 result.
@@ -465,7 +485,13 @@ def random_cnn(torch, seed: int):
 
 def phase_kernels(torch, dev) -> dict[str, dict]:
     from amcpy_tpu_torch.ops import features as F
-    from amcpy_tpu_torch.ops.fused import extract_features_fused, gmax_path
+    from amcpy_tpu_torch.ops.fused import (
+        cluster_occupancy,
+        extract_features_fused,
+        fused_route,
+        gmax_path,
+        library_route,
+    )
     from amcpy_tpu_torch.ops.pallas_features import extract_features_pallas, stats_path
 
     rows: dict[str, dict] = {}
@@ -476,39 +502,67 @@ def phase_kernels(torch, dev) -> dict[str, dict]:
             i, q, normalize_scale=True, compute_gmax=True, gmax_mode="matmul"
         )
 
+    def time_k1(row, i, q, b, n):
+        """K1's ms at (b, n) beside its bound, the plain version and the
+        library's FFT (gamma_max only), inputs rotated past the L2."""
+        planes = rotated(i, q)
+        row["ms"] = cuda_ms(extract_features_fused, planes, 20)
+        # the same input again and again: as much of it in L2 as fits
+        row["warm_l2_ms"] = cuda_ms(extract_features_fused, planes[:1], 20)
+        row["plain_ms"] = cuda_ms(plain_k1, planes, 5)
+        row["library_ms"] = cuda_ms(
+            lambda c: torch.fft.fft(c).abs().amax(dim=-1),
+            rotated(torch.complex(i, q)), 20,
+        )
+        row["bound_ms"], row["bound_by"] = bound(*k1_work(b, n))
+        row["shape"] = [b, n]
+
     k1 = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
-    before = extract_features_fused.launches
-    k1_shapes = [(4096, 2048), (1000, 2048), (37, 1024), (64, 256), (2, 16384),
-                 (3, 12288), (50, 1000), (7, 88)]
-    for seed, (b, n) in enumerate(k1_shapes):
+    k1c = {"max_abs_err": 0.0, "max_err_over_tol": 0.0, "timed": {}}
+    before = dict(extract_features_fused.launches_by_route)
+    for seed, (b, n) in enumerate(K1_CHECKS):
+        route, c = fused_route(n)
+        if library_route(n) != (route, c):
+            raise AssertionError(f"fused_route({n}) = {route, c}, the library "
+                                 f"{library_route(n)}")
+        row = k1 if route == "block" else k1c
         x = test_frames(b, n, seed)
         i = torch.from_numpy(np.ascontiguousarray(x.real)).to(dev)
         q = torch.from_numpy(np.ascontiguousarray(x.imag)).to(dev)
+        by_route = dict(extract_features_fused.launches_by_route)
         got = extract_features_fused(i, q)
         torch.cuda.synchronize()
+        ran = [r for r, k in extract_features_fused.launches_by_route.items()
+               if k > by_route[r]]
+        if ran != [route]:
+            raise AssertionError(f"K1 at N = {n} ran {ran}, not {route}")
         want = plain_k1(i, q)
         err, ratio = compare(got, want, x)
-        checks.append({"kernel": "K1", "shape": [b, n], "gmax_path": gmax_path(n),
-                       "max_abs_err": err, "max_err_over_tol": ratio,
-                       "gmax_err_over_tol": compare(got, want, x, cols=[0])[1]})
-        k1["max_abs_err"] = max(k1["max_abs_err"], err)
-        k1["max_err_over_tol"] = max(k1["max_err_over_tol"], ratio)
+        check = {"kernel": "K1", "shape": [b, n], "route": route,
+                 "max_abs_err": err, "max_err_over_tol": ratio,
+                 "gmax_err_over_tol": compare(got, want, x, cols=[0])[1]}
+        if route == "block":
+            check["gmax_path"] = gmax_path(n)
+        else:
+            check["cluster"] = c
+            check["max_active_clusters"] = cluster_occupancy(n, dev.index or 0)
+        checks.append(check)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["max_err_over_tol"] = max(row["max_err_over_tol"], ratio)
         if (b, n) == (4096, 2048):
-            planes = rotated(i, q)
-            k1["ms"] = cuda_ms(extract_features_fused, planes, 20)
-            # the same input again and again: as much of it in L2 as fits
-            k1["warm_l2_ms"] = cuda_ms(extract_features_fused, planes[:1], 20)
-            k1["plain_ms"] = cuda_ms(plain_k1, planes, 5)
-            k1["library_ms"] = cuda_ms(
-                lambda c: torch.fft.fft(c).abs().amax(dim=-1),
-                rotated(torch.complex(i, q)), 20,
-            )
-            k1["bound_ms"], k1["bound_by"] = bound(*k1_work(b, n))
-            k1["shape"] = [b, n]
+            time_k1(k1, i, q, b, n)
             k1["gmax_path"] = gmax_path(n)
-    if extract_features_fused.launches <= before:
-        raise AssertionError("the fused kernel's launch counter did not rise")
+        elif (b, n) in K1_CLUSTER_TIMED:
+            at = {"cluster": c}
+            time_k1(at, i, q, b, n)
+            k1c["timed"][f"{b}x{n}"] = at
+            if (b, n) == K1_CLUSTER_TIMED[0]:
+                k1c.update(at)
+    after = extract_features_fused.launches_by_route
+    if any(after[r] <= before[r] for r in after):
+        raise AssertionError(f"a route of the fused kernel did not launch: {after}")
     rows["fused"] = k1
+    rows["fused_cluster"] = k1c
 
     k2 = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
     before = extract_features_pallas.launches
@@ -558,6 +612,17 @@ def phase_kernels(torch, dev) -> dict[str, dict]:
             raise AssertionError(f"{key} kernel disagrees with its plain version: {r}")
     return rows
 
+
+#: K1's checks (b, n): the main path's shape and both gamma_max paths of
+#: the block route (the direct one at 1000 and 88), then the cluster route
+#: at C = 2 ... 8 (65536 = 4 x 16384 at the 4096 x 2048 row's 8.4 M samples,
+#: 131072 = 8 x 16384, 20480 = 5 x 4096, 24576 = 3 x 8192, ...)
+K1_CHECKS = [(4096, 2048), (1000, 2048), (37, 1024), (64, 256), (2, 16384),
+             (3, 12288), (50, 1000), (7, 88),
+             (128, 65536), (64, 131072), (3, 20480), (3, 24576), (2, 32768),
+             (2, 49152), (2, 81920), (2, 98304), (2, 114688)]
+#: the cluster route's timed shapes; the first is its kernels-line row
+K1_CLUSTER_TIMED = [(128, 65536), (64, 131072)]
 
 #: K2's checks (b, n): the main path's shape and the warpgroup route's
 #: scalar loads (N % 4 != 0: 1023, 6) and ragged last block (b = 5, 3) on
@@ -1090,6 +1155,7 @@ def phase_synthetic(torch, dev, cfg, work, counts, zero_counts, paths) -> dict:
                               seed * 1000 + mi) for mi, mod in enumerate(mods)}
     line = {"phase": "synthetic", "frames": len(mods) * rows, "frame_size": s.frame_size,
             "wall_s": wall, "frames_per_s": len(mods) * rows / wall,
+            "samples_per_s": len(mods) * rows * s.frame_size / wall,
             "per_modulation_s": {r["modulation"]: r["wall_s"] for r in recs},
             "gen_planes_ms_one_modulation": gen_ms, "chunk": chunk,
             "launches": paths["synthetic"][1], "launches_expected": want_launches,
@@ -1736,6 +1802,136 @@ def phase_records(torch, dev, cfg, data, counts, zero_counts, paths) -> dict:
 
 
 #: the 2-rank CPU run of the command line in phase 14 must end within this
+#: phase 17: frames past one block's shared memory (the cluster route, C =
+#: 4), 16 frames a (modulation, SNR) block: 1,536 frames, 0.8 GB of planes
+LONG_FRAME = 65536
+LONG_FRAMES_A_BLOCK = 16
+#: frames of 2^19 samples fit neither route of K1 (2^19 = 32 x 16384)
+REROUTE_FRAME = 1 << 19
+
+
+def phase_long_frames(torch, dev, cfg, work, counts, zero_counts, paths) -> dict:
+    """Phase 17: frames of 65,536 samples through the entry points on K1's
+    cluster route: ``extract --from-synthetic 17`` in this process
+    (``cli.main``) at 16 frames a block, its artifacts finite, 64 random
+    rows against the plain extractor on the same frames drawn again; the
+    JAX MLP fixture served by ``AMCPipeline`` on those 64 frames against the
+    plain pipeline (argmax identical, logits within 1e-3); then frames of
+    2^19 samples, which fit neither route, through the counted reroute of
+    ``extract_features_fused_any`` (no launch; equal to the plain
+    extractor) while ``extract_features_fused`` raises."""
+    from amcpy_tpu_torch.cli import main as cli_main
+    from amcpy_tpu_torch.data import io_mat, synth
+    from amcpy_tpu_torch.ops import features as F
+    from amcpy_tpu_torch.ops.fused import (
+        extract_features_fused,
+        extract_features_fused_any,
+        fused_route,
+    )
+    from amcpy_tpu_torch.serve import AMCPipeline
+
+    seed = 17
+    root = work / "long_frames"
+    root.mkdir(parents=True)
+    signals = {"num_frames": LONG_FRAMES_A_BLOCK, "frame_size": LONG_FRAME}
+    lcfg = cfg.replace(paths={"root": str(root)}, signals=signals)
+    config = root / "long.yaml"
+    config.write_text(json.dumps({"signals": signals}))
+    s = lcfg.signals
+    mods = s.modulations_with_noise
+    rows = s.num_snr * s.num_frames
+    route = fused_route(LONG_FRAME)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    cli_main(["--root", str(root), "--config", str(config), "--device", str(dev),
+              "extract", "--from-synthetic", str(seed)])
+    wall = time.perf_counter() - t0
+    paths["long_frames_extract"] = ("fused_cluster", counts())
+    recs = [json.loads(t) for t in (lcfg.paths.metrics / "run.jsonl").read_text().splitlines()]
+    stage_s = sum(r["wall_s"] for r in recs if r["event"] == "extract_synthetic")
+    arts = {m: io_mat.load_features(lcfg, m) for m in mods}
+    for mod, art in arts.items():
+        if art.shape != (s.num_snr, s.num_frames, 18) or not np.isfinite(art).all():
+            raise AssertionError(f"{mod}: long-frame artifact {art.shape} not finite/shaped")
+
+    # 64 random rows against the plain extractor on the same frames, drawn
+    # again on the card from the same generators
+    rng = np.random.default_rng(19)
+    picks = np.sort(rng.choice(len(mods) * rows, 64, replace=False))
+    got, want, frames = [], [], []
+    for mi, mod in enumerate(mods):
+        sel = picks[(picks >= mi * rows) & (picks < (mi + 1) * rows)] - mi * rows
+        if not len(sel):
+            continue
+        i, q = synth.gen_planes(synth.seeded_generator(seed * 1000 + mi, dev),
+                                synth.points_of(mod), s.snr_db, s.num_frames,
+                                s.frame_size, True, dev)
+        idx = torch.from_numpy(sel).to(dev)
+        pi, pq = i[idx], q[idx]
+        want.append(F.extract_features_planar(torch.stack((pi, pq), 1), gmax_mode="matmul"))
+        frames.append(pi.cpu().numpy() + 1j * pq.cpu().numpy())
+        got.append(torch.from_numpy(arts[mod].reshape(-1, 18)[sel]))
+        del i, q
+    frames = np.concatenate(frames).astype(np.complex64)
+    err, ratio = compare(torch.cat(got), torch.cat(want), frames)
+
+    # the JAX MLP fixture serving the 64 frames
+    fixtures = Path(__file__).resolve().parent / "tests" / "fixtures" / "flax_ckpt"
+    lcfg.paths.trained_ann.mkdir(parents=True, exist_ok=True)
+    for f in fixtures.glob("model-jax-mlp.*"):
+        shutil.copy(f, lcfg.paths.trained_ann / f.name)
+    pipe = AMCPipeline.from_checkpoint(lcfg, "jax-mlp", device=dev)
+    plain = AMCPipeline.from_checkpoint(lcfg.replace(compute={"kernel": "xla"}), "jax-mlp",
+                                        device=dev)
+    zero_counts()
+    served = pipe.logits(frames)
+    paths["long_frames_serving"] = ("fused_cluster", counts())
+    ref = plain.logits(frames)
+    serve_ms = sorted(timed(torch, lambda: pipe.logits(frames)) for _ in range(5))[2]
+
+    # 2^19 samples a frame: neither route, the counted reroute
+    x = test_frames(2, REROUTE_FRAME, seed=23)
+    i = torch.from_numpy(np.ascontiguousarray(x.real)).to(dev)
+    q = torch.from_numpy(np.ascontiguousarray(x.imag)).to(dev)
+    zero_counts()
+    try:
+        extract_features_fused(i, q)
+        raised = False
+    except ValueError:
+        raised = True
+    rerouted = extract_features_fused_any(i, q)
+    reroute_counts = counts()
+    reroute_same = bool(torch.equal(rerouted, F._extract_planar(
+        i, q, normalize_scale=True, compute_gmax=True, gmax_mode="matmul")))
+
+    n_frames = len(mods) * rows
+    line = {"phase": "long_frames", "frame_size": LONG_FRAME, "route": route,
+            "frames": n_frames, "planes_bytes": n_frames * LONG_FRAME * 8,
+            "wall_s": wall, "frames_per_s": n_frames / wall,
+            "samples_per_s": n_frames * LONG_FRAME / wall,
+            "extraction_stages_s": stage_s,
+            "stages_samples_per_s": n_frames * LONG_FRAME / stage_s,
+            "launches": paths["long_frames_extract"][1],
+            "rows_checked": 64, "max_abs_err": err, "max_err_over_tol": ratio,
+            "serving": {"frames": 64, "launches": paths["long_frames_serving"][1],
+                        "max_logit_diff": float((served - ref).abs().max()),
+                        "argmax_mismatch": int((served.argmax(-1) != ref.argmax(-1)).sum()),
+                        "ms_median": serve_ms},
+            "reroute": {"frame_size": REROUTE_FRAME, "route": fused_route(REROUTE_FRAME),
+                        "fused_raised": raised, "launches": reroute_counts,
+                        "equal_to_plain": reroute_same}}
+    c = paths["long_frames_extract"][1]
+    sc = paths["long_frames_serving"][1]
+    if (route[0] != "cluster" or ratio > 1.0 or c["fused_block"] or c["reroutes"]
+            or sc["fused_block"] or sc["reroutes"] or line["serving"]["argmax_mismatch"]
+            or not torch.allclose(served, ref, atol=1e-3, rtol=1e-3)
+            or not raised or not reroute_same or reroute_counts["reroutes"] != 1
+            or reroute_counts["fused"]):
+        raise AssertionError(f"long frames failed their checks: {line}")
+    return line
+
+
 CPU_RANKS_DEADLINE_S = 120.0
 
 
@@ -2086,9 +2282,16 @@ def main() -> int:
     if len(wg_ptxas) != 1:
         raise AssertionError("ptxas reported no stats_wg_kernel<true>")
 
+    # K1's cluster kernel: registers and spills, for its row
+    cluster_ptxas = [r for entry, r in ptxas_report(logs["features"]).items()
+                     if "fused_cluster_kernel" in entry]
+    if len(cluster_ptxas) != 1:
+        raise AssertionError("ptxas reported no fused_cluster_kernel")
+
     rows = phase_kernels(torch, dev)
     rows["cnn_trunk"].update(wgmma_ptxas[0])
     rows["pallas"].update(wg_ptxas[0])
+    rows["fused_cluster"].update(cluster_ptxas[0])
 
     work = Path(tempfile.mkdtemp(prefix="amc_chip_smoke_"))
     try:
@@ -2100,6 +2303,8 @@ def main() -> int:
 
         def counts() -> dict[str, int]:
             return {"fused": extract_features_fused.launches,
+                    "fused_block": extract_features_fused.launches_by_route["block"],
+                    "fused_cluster": extract_features_fused.launches_by_route["cluster"],
                     "pallas": extract_features_pallas.launches,
                     "pallas_warpgroup": extract_features_pallas.launches_by_path["warpgroup"],
                     "cnn_trunk": cnn_trunk.launches,
@@ -2108,6 +2313,8 @@ def main() -> int:
 
         def zero_counts() -> None:
             extract_features_fused.launches = 0
+            for route in extract_features_fused.launches_by_route:
+                extract_features_fused.launches_by_route[route] = 0
             extract_features_pallas.launches = 0
             for path in extract_features_pallas.launches_by_path:
                 extract_features_pallas.launches_by_path[path] = 0
@@ -2432,16 +2639,24 @@ def main() -> int:
         # ---- phase 16: the k=8 stack's training, the card against the CPU --
         phase_training_card_vs_cpu(dev)
 
+        # ---- phase 17: frames past one block, K1's cluster route, paths 20-21
+        emit(phase_long_frames(torch, dev, cfg, work, counts, zero_counts, paths))
+
         for path, (keys, c) in paths.items():
             for key in path_keys(keys):
                 if c[key] == 0 or c["reroutes"]:
                     raise AssertionError(f"path {path} did not run through {key}: {c}")
+            # the frames of 2048 samples stay on K1's block route
+            if "fused" in path_keys(keys) and c["fused_cluster"]:
+                raise AssertionError(f"path {path} left K1's block route: {c}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     meta = {
-        "fused": ("amc_fused_features (K1)", "amcpy_tpu/ops/fused.py:267",
+        "fused": ("amc_fused_features (K1, block route)", "amcpy_tpu/ops/fused.py:267",
                   "amcpy_tpu_torch/csrc/features.cu"),
+        "fused_cluster": ("amc_fused_features (K1, cluster route)",
+                          "amcpy_tpu/ops/fused.py:267", "amcpy_tpu_torch/csrc/features.cu"),
         "pallas": ("amc_stats_features (K2)", "amcpy_tpu/ops/pallas_features.py:73",
                    "amcpy_tpu_torch/csrc/features.cu"),
         "cnn_trunk": ("amc_cnn_trunk (K3)", "amcpy_tpu/ops/cnn_infer.py:109",
@@ -2450,24 +2665,35 @@ def main() -> int:
     per_request = {r["route"]: r["launches"] for r in requests + cnn_requests
                    if r["frames"] == 4096 and r["route"].endswith("/complex")}
     kernels = []
+    # K1's launches on the paths that run through it, by route
+    k1_by_route = {route: sum(c[f"fused_{route}"] for k, c in paths.values()
+                              if {"fused", "fused_cluster"} & set(path_keys(k)))
+                   for route in ("block", "cluster")}
     for key, r in rows.items():
         name, replaces, source = meta[key]
-        by_path = {path: c[key] for path, (_, c) in paths.items()}
+        # K1's block row counts the launches of its route
+        count = "fused_block" if key == "fused" else key
+        by_path = {path: c[count] for path, (_, c) in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             # summed over the paths that run through this kernel
-            "launches": sum(c[key] for k, c in paths.values() if key in path_keys(k)),
+            "launches": sum(c[count] for k, c in paths.values() if key in path_keys(k)),
             "launches_by_path": by_path,
-            "launches_per_4096_frame_request": per_request[f"{key}/complex"][key],
+            "launches_by_route": k1_by_route if key.startswith("fused") else None,
+            "launches_per_4096_frame_request":
+                per_request.get(f"{key}/complex", {}).get(key),
             "max_abs_err": r["max_abs_err"],
             "max_err_over_tol": r["max_err_over_tol"],
             "ms": r["ms"], "warm_l2_ms": r["warm_l2_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
-            # K1: how gamma_max was computed at the timed shape
+            # K1: how gamma_max was computed at the timed shape (block
+            # route); the cluster size and every timed shape (cluster route)
             "gmax_path": r.get("gmax_path"),
+            "cluster": r.get("cluster"),
+            "timed": r.get("timed"),
             # K3: the module forward's time on the same frames, the three
             # times its bound is the largest of; K2 and K3: the kernel that
             # ran at the timed shape, and that kernel's registers and spills

@@ -27,7 +27,12 @@ import torch
 from amcpy_tpu_torch.config import Config
 from amcpy_tpu_torch.ops import features as F
 from amcpy_tpu_torch.ops.cnn_infer import cnn_trunk, cnn_trunk_plain, trunk_path
-from amcpy_tpu_torch.ops.fused import extract_features_fused, split_planes
+from amcpy_tpu_torch.ops.fused import (
+    extract_features_fused,
+    extract_features_fused_any,
+    fused_route,
+    split_planes,
+)
 from amcpy_tpu_torch.ops.pallas_features import extract_features_pallas, stats_path
 
 from .oracle import features_batch, term_scales
@@ -64,6 +69,15 @@ def _planes(x, dev):
     return tuple(torch.from_numpy(p).to(dev) for p in split_planes(x))
 
 
+def _k1_launch(i, q, **kw):
+    """K1 on (i, q); the routes its launch was counted on."""
+    by_route = dict(extract_features_fused.launches_by_route)
+    got = extract_features_fused(i, q, **kw)
+    torch.cuda.synchronize()
+    ran = [r for r, c in extract_features_fused.launches_by_route.items() if c > by_route[r]]
+    return got, ran
+
+
 @pytest.mark.parametrize(
     "b,n",
     [(37, 1024), (64, 256), (130, 2048), (1, 512), (50, 1000), (4096, 2048),
@@ -77,11 +91,12 @@ def test_kernels_match_plain_on_card(cuda, b, n):
     x = _frames(b, n, seed=n)
     i, q = _planes(x, cuda)
     k1, k2 = extract_features_fused.launches, extract_features_pallas.launches
-    got = extract_features_fused(i, q).cpu().numpy()
+    got, ran = _k1_launch(i, q)
+    assert ran == ["block"] and fused_route(n) == ("block", 1)
     want = F._extract_planar(
         i, q, normalize_scale=True, compute_gmax=True, gmax_mode="matmul"
     ).cpu().numpy()
-    _assert_within(got, want, x, 2e-4, 2e-5)
+    _assert_within(got.cpu().numpy(), want, x, 2e-4, 2e-5)
     iq = torch.from_numpy(F.to_planar(x)).to(cuda)
     got2 = extract_features_pallas(iq, gmax_mode="matmul").cpu().numpy()
     _assert_within(got2, want, x, 2e-4, 2e-5)
@@ -225,21 +240,26 @@ def _tiny_sample_frames(b, n, seed):
     return x
 
 
-def _assert_kernels_match_plain(x, dev):
-    """K1 and K2 on ``x`` finite and within the kernel bar of the plain
-    version (plus two subnormal steps, one a side)."""
+def _assert_kernels_match_plain(x, dev, k2=True):
+    """K1 and K2 (K1 alone with ``k2=False``) on ``x`` finite and within
+    the kernel bar of the plain version (plus two subnormal steps, one a
+    side)."""
     n = x.shape[-1]
     i, q = _planes(x, dev)
     want = F._extract_planar(
         i, q, normalize_scale=True, compute_gmax=True, gmax_mode="matmul"
     ).cpu().numpy().astype(np.float64)
     assert np.isfinite(want).all()
-    k1 = extract_features_fused(i, q).cpu().numpy().astype(np.float64)
-    k2, ran = _k2_launch(torch.from_numpy(F.to_planar(x)).to(dev))
-    assert ran == [stats_path(n)]
+    k1, ran = _k1_launch(i, q)
+    assert ran == [fused_route(n)[0]]
+    results = [("K1", k1.cpu().numpy().astype(np.float64))]
+    if k2:
+        got2, ran = _k2_launch(torch.from_numpy(F.to_planar(x)).to(dev))
+        assert ran == [stats_path(n)]
+        results.append(("K2", got2.cpu().numpy().astype(np.float64)))
     tol = (2e-4 * np.stack([term_scales(f) for f in x]) + 2e-5 * np.abs(want)
            + 2 * F32_STEP)
-    for name, got in (("K1", k1), ("K2", k2.cpu().numpy().astype(np.float64))):
+    for name, got in results:
         assert np.isfinite(got).all(), (name, np.nonzero(~np.isfinite(got))[1] + 1)
         bad = np.abs(got - want) > tol
         assert not bad.any(), (name, sorted(set(np.nonzero(bad)[1] + 1)))
@@ -283,6 +303,171 @@ def test_k2_unaligned_input_on_card(cuda):
         _assert_within(got.cpu().numpy(), want.cpu().numpy(), x, 2e-4, 2e-5)
 
 
+#: frame sizes of K1's cluster route, C = 2 ... 8 (``fused_route``)
+CLUSTER_SIZES = [20480, 24576, 32768, 49152, 65536, 81920, 98304, 114688, 131072]
+#: the long frame of the edge cases: four slices of 16384 samples
+LONG_N = 65536
+LONG_M = 16384
+
+
+@pytest.mark.parametrize("n", CLUSTER_SIZES)
+def test_cluster_route_matches_plain_on_card(cuda, n):
+    """Frames past one block's shared memory: one cluster of C blocks a
+    frame, within K1's bar of the plain version, counted on the cluster
+    route alone; normalized and not (the x^6 sums then need a narrower
+    scale spread)."""
+    route, c = fused_route(n)
+    assert route == "cluster" and 2 <= c <= 8
+    for normalize, spread in ((True, 6.0), (False, 1.0)):
+        x = _frames(3, n, seed=n, spread=spread)
+        i, q = _planes(x, cuda)
+        got, ran = _k1_launch(i, q, normalize_scale=normalize)
+        assert ran == ["cluster"]
+        want = F._extract_planar(
+            i, q, normalize_scale=normalize, compute_gmax=True, gmax_mode="matmul"
+        )
+        _assert_within(got.cpu().numpy(), want.cpu().numpy(), x, 2e-4, 2e-5)
+
+
+def test_cluster_route_follows_oracle_on_card(cuda):
+    """K1's cluster route against the float64 oracle."""
+    x = _frames(4, LONG_N, seed=31)
+    got, ran = _k1_launch(*_planes(x, cuda))
+    assert ran == ["cluster"]
+    _assert_within(got.cpu().numpy(), features_batch(x), x, 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("peak", [1.0, 1e-20, 1e-30, 1e-38])
+def test_cluster_route_at_tiny_peaks_matches_plain_on_card(cuda, peak):
+    """Frames of tiny peak amplitude (every sample rescaled by 2^100; at
+    1e-38 every sample subnormal and mean|x| below the range of its
+    reciprocal, so the frame-wide mean_scale() applies) on the cluster
+    route."""
+    _assert_kernels_match_plain(
+        _peak_frames(3, LONG_N, peak, seed=int(-np.log10(peak))), cuda, k2=False)
+
+
+def _last_slice_frames(seed):
+    """Ordinary Gaussian frames whose tiny (1e-30), subnormal (1e-41) and
+    zero samples all lie in the cluster's last slice, and, in frame 1, the
+    frame's peak |x| too (near its end); frame 2 has a tiny sample as the
+    last sample of every slice."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((3, LONG_N)) + 1j * rng.standard_normal((3, LONG_N))
+         ).astype(np.complex64)
+    last = LONG_N - LONG_M
+    x[:, last::7] *= np.float32(1e-30)
+    x[:, last + 3::11] *= np.float32(1e-41)
+    x[:, last + 5::13] = 0
+    x[1, LONG_N - 3] = np.complex64(40 - 30j)
+    x[2, LONG_M - 1::LONG_M] *= np.float32(1e-30)
+    return x
+
+
+def test_cluster_route_last_slice_tiny_samples_and_peak_on_card(cuda):
+    """A tiny sample in the last block moves only its own thread to polar(),
+    which gives every other sample the plain root and phase; a peak in the
+    last block sets every block's normalization."""
+    x = _last_slice_frames(seed=32)
+    assert np.abs(x[1]).argmax() >= LONG_N - LONG_M
+    _assert_kernels_match_plain(x, cuda, k2=False)
+
+
+def _slice_step_frames():
+    """Frames whose phase jumps at every slice boundary: samples of phase
+    2.9 r plus noise in slice r (steps of ~2.9 rad between slices, which
+    wrap past pi) and log-normal amplitudes (a constant one would leave
+    |x| / mean|x| - 1 to roundoff); real samples whose sign flips every 64
+    samples and so at each boundary (steps of exactly +-pi, np.unwrap's
+    edge rule); and every third sample (I < 0, Q = -0.0), which puts -0.0
+    samples on both sides of the boundaries."""
+    k = np.arange(LONG_N)
+    rng = np.random.default_rng(33)
+    jump = np.exp(0.3 * rng.standard_normal(LONG_N)
+                  + 1j * (2.9 * (k // LONG_M) + 0.3 * rng.standard_normal(LONG_N)))
+    flip = np.where((k // 64) % 2 == 0, 1.0, -1.0) * (1 + 0.5 * (k % 3 == 0))
+    nz = (rng.standard_normal(LONG_N) + 1j * rng.standard_normal(LONG_N)).astype(np.complex64)
+    nz.real[::3] = -np.abs(nz.real[::3])
+    nz.imag[::3] = -0.0
+    x = np.stack([jump, flip, nz]).astype(np.complex64)
+    x.imag[1] = 0.0
+    assert np.signbit(x.imag[2, ::3]).all()
+    assert np.signbit(x.imag[2, LONG_M * 3])  # the last slice's first sample
+    return x
+
+
+def test_cluster_route_phase_steps_across_slices_follow_oracle_on_card(cuda):
+    """The phase step after each slice's last sample reads the next block's
+    first phase: the wrap's floor-mod, the +-pi edge rule and numpy's signed
+    zero across the boundaries, against the float64 oracle."""
+    x = _slice_step_frames()
+    got, ran = _k1_launch(*_planes(x, cuda))
+    assert ran == ["cluster"]
+    _assert_within(got.cpu().numpy(), features_batch(x), x, 1e-4, 1e-5)
+
+
+def test_frames_of_neither_route_reroute_by_shape_on_card(cuda):
+    """N = 2^19 fits neither route: ``extract_features_fused`` raises before
+    any launch, and ``extract_features_fused_any`` answers through the plain
+    extractor, counted as a reroute."""
+    n = 1 << 19
+    assert fused_route(n) == ("none", 0)
+    x = _frames(2, n, seed=34)
+    i, q = _planes(x, cuda)
+    launches = extract_features_fused.launches
+    with pytest.raises(ValueError, match="neither route"):
+        extract_features_fused(i, q)
+    reroutes = extract_features_fused_any.reroutes
+    got = extract_features_fused_any(i, q)
+    assert extract_features_fused_any.reroutes == reroutes + 1
+    assert extract_features_fused.launches == launches
+    want = F._extract_planar(i, q, normalize_scale=True, compute_gmax=True,
+                             gmax_mode="matmul")
+    assert torch.equal(got, want)
+
+
+def test_fused_route_follows_the_library(cuda):
+    """``fused_route`` names the route and C that ``amc_fused_route`` takes,
+    at every multiple of 32 up to 140,000 and at the edges; every cluster
+    size can be held by the card (``cudaOccupancyMaxActiveClusters``)."""
+    from amcpy_tpu_torch.ops.fused import cluster_occupancy, library_route
+
+    sizes = list(range(32, 140_000, 32)) + [10, 88, 1000, 16383, 18944, 18945, 36864,
+                                            1 << 19]
+    wrong = [n for n in sizes if library_route(n) != fused_route(n)]
+    assert not wrong, wrong[:10]
+    for c in range(2, 9):
+        assert fused_route(c * LONG_M) == ("cluster", c)
+        assert cluster_occupancy(c * LONG_M, 0) > 0
+
+
+def test_long_frames_through_the_entry_points_on_card(cuda, tmp_path):
+    """``extract_batch`` (kernel "auto") and ``AMCPipeline`` at N = 65536
+    run the cluster route and agree with the plain versions."""
+    from amcpy_tpu_torch.extraction import extract_batch
+    from amcpy_tpu_torch.models.classifier import AMCClassifier
+    from amcpy_tpu_torch.preprocessing import Standardizer
+    from amcpy_tpu_torch.serve import AMCPipeline
+
+    x = _frames(12, LONG_N, seed=35, spread=1.0)
+    by_route = dict(extract_features_fused.launches_by_route)
+    got = extract_batch(x, kernel="auto", device=cuda)
+    assert extract_features_fused.launches_by_route["cluster"] > by_route["cluster"]
+    assert extract_features_fused.launches_by_route["block"] == by_route["block"]
+    want = extract_batch(x, kernel="xla", device=cuda)
+    _assert_within(np.asarray(got), np.asarray(want), x, 2e-4, 2e-5)
+    cfg = Config().replace(paths={"root": str(tmp_path)}, signals={"frame_size": LONG_N})
+    cols = list(cfg.features.used_columns)
+    scaler = Standardizer.fit(np.asarray(want)[:, cols])
+    torch.manual_seed(0)
+    model = AMCClassifier(6)
+    pipes = {k: AMCPipeline(model, scaler, cfg.replace(compute={"kernel": k}), device=cuda)
+             for k in ("auto", "xla")}
+    assert pipes["auto"]._kernel == "fused"
+    torch.testing.assert_close(pipes["auto"].logits(x), pipes["xla"].logits(x),
+                               atol=1e-3, rtol=1e-3)
+
+
 @pytest.mark.parametrize("n", [2, 6, 88, 1000, 1023, 2048, 2049, 16384])
 def test_stats_path_follows_the_library(cuda, n):
     """``stats_path`` names the route ``amc_stats_path`` takes."""
@@ -307,8 +492,8 @@ def test_gmax_path_follows_n2(cuda):
 
 def test_fft_path_reads_no_dft_table(cuda):
     """At N = 2048 the kernel is given the W_N twiddles and null pointers
-    for the W_N1, twiddle and W_N2 tables: a read of any of them would
-    fault. Its output equals the wrapper's."""
+    for the cluster route's W_M, the W_N1, twiddle and W_N2 tables: a read
+    of any of them would fault. Its output equals the wrapper's."""
     from amcpy_tpu_torch.ops import _build
     from amcpy_tpu_torch.ops.fft import device_fft_twiddles
 
@@ -319,7 +504,7 @@ def test_fft_path_reads_no_dft_table(cuda):
     out = torch.empty_like(want)
     err = lib.amc_fused_features(
         i.data_ptr(), q.data_ptr(), device_fft_twiddles(2048, cuda).data_ptr(),
-        0, 0, 0, 0, 0, 0, out.data_ptr(), 16, 2048, 8, 256, 1,
+        0, 0, 0, 0, 0, 0, 0, out.data_ptr(), 16, 2048, 8, 256, 1,
         torch.cuda.current_stream(cuda).cuda_stream,
     )
     _build.check(lib, err, "amc_fused_features")
