@@ -13,11 +13,11 @@
 // memory and computes the statistics in three passes. A frame too long for
 // one block's shared memory (12 bytes a sample: N above ~19,000) takes the
 // cluster route where N = C x M, 2 <= C <= 8, M a power of two in
-// [2048, 16384]: one thread-block cluster of C blocks a frame
-// (fused_cluster_kernel), block r holding samples r M .. r M + M - 1 as
-// the block route holds a whole frame, the blocks reading each other's
-// shared memory (DSMEM). Other frames fit neither route. K2 has two
-// routes, chosen by N alone (amc_stats_path): frames of N <= 2048 go to
+// [2048, 16384]: one thread-block cluster of C blocks of 1024 threads a
+// frame (fused_cluster_kernel<C>), block r holding samples r M .. r M + M - 1
+// as the block route holds a whole frame, the blocks reading and writing
+// each other's shared memory (DSMEM). Other frames fit neither route. K2 has
+// two routes, chosen by N alone (amc_stats_path): frames of N <= 2048 go to
 // stats_wg_kernel, one warpgroup a frame with the frame in registers and
 // the warpgroup's own named barriers; longer frames to stats_kernel, one
 // block a frame through frame_stats.
@@ -56,26 +56,32 @@
 //    the N1 rows against the N2 x N2 table, streamed from L2 through shared
 //    memory in K-blocks. N2 alone picks the path (amc_fused_gmax_path);
 //    there is no fallback between them.
-//  * The cluster route runs frame_stats on each block's slice, with every
+//  * The cluster route's block (one an SM at M = 16384: its slice takes
+//    ~200 KB of shared memory) has 1024 threads, four times the block
+//    route's, for the warps that hide its waits on shared memory, DSMEM and
+//    barriers. It copies its slice into shared memory with cp.async, every
+//    copy in flight at once, and runs frame_stats on it, each thread's 16
+//    normalized amplitudes and phase steps kept in registers, with every
 //    frame-wide quantity taken over the cluster at each pass boundary
 //    (cluster_combine: the block's totals into its own shared memory, a
 //    cluster barrier, then each block sums the C partials in rank order, so
 //    every block holds the same bits): the means, max|x| for the
-//    normalization and so mean_scale(), and the centred sums. The tiny-sample
-//    key stays a thread's own choice: polar() gives a sample that is not
-//    tiny exactly the plain root and phase, so it only saves work. The
-//    phase step after a slice's last sample reads the next block's first
-//    phase through DSMEM. gamma_max with n = r M + m, k = k1 + C k2:
+//    normalization and so mean_scale(), and the centred sums. The
+//    tiny-sample key stays a thread's own choice: polar() gives a sample
+//    that is not tiny exactly the plain root and phase, so it only saves
+//    work. The phase step after a slice's last sample reads the next
+//    block's first phase through DSMEM.
+//    gamma_max with n = r M + m, k = k1 + C k2:
 //      X[k1 + C k2] = sum_m W_M^{m k2} W_N^{m k1} sum_r x[r M + m] W_C^{r k1},
-//    so block k1 forms the C-point DFT over the slices at each m (W_C and
-//    W_N^{m k1} from the host's N-entry table), then runs the block route's
-//    FFT of length M on the result and the cluster takes the maximum. The
-//    C-point DFT overwrites the block's own slice, which the other blocks
-//    read: it goes chunk by chunk (kThreads * kGmaxPer places), each chunk
-//    read into registers by every block, then a cluster barrier, then
-//    written in place, so no place is written before every block has read
-//    it. A last cluster barrier keeps every block's shared memory alive
-//    until no block of its cluster reads it.
+//    so the C-point DFT over the slices at each m (W_C and W_N^{m k1} from
+//    the host's N-entry table) goes first, then block k1 runs the block
+//    route's FFT of length M on output k1 and the cluster takes the
+//    maximum. The C-point DFT is exchanged by place: block r reads M / C
+//    places of every slice and writes the C outputs at those places into
+//    the C slices (2 N complex values a frame through DSMEM, not C N), and
+//    as no other thread touches those places it needs no barrier of its
+//    own. Five cluster barriers a frame; after the last no block reads
+//    another's shared memory.
 //
 // Numerics (held to the plain PyTorch version, amcpy_tpu_torch/ops/features.py):
 //  * floor-mod: the wrapped phase difference is mod(d + pi, 2pi) - pi with
@@ -145,10 +151,15 @@ constexpr size_t kSmemLimit = 232448;  // 227 KB a block may use on sm_90
 constexpr int kMaxCluster = 8;
 constexpr int kSliceMin = 2048;
 constexpr int kSliceMax = 16384;
-// places of the slice a thread carries in registers in one chunk of the
-// cluster's C-point DFT
-constexpr int kGmaxPer = 8;
-static_assert(kSliceMin % (kThreads * kGmaxPer) == 0, "whole chunks a slice");
+// A cluster route block has 1024 threads (32 warps, at most 64 registers a
+// thread): at M = 16384 its slice's ~200 KB of shared memory leave room for
+// one block an SM, and every phase of it waits on shared memory, DSMEM or a
+// barrier, so it needs the warps the block route gets from four blocks an
+// SM. Each thread keeps its kClusterPer samples' normalized amplitude and
+// wrapped frequency in registers between the statistics' passes.
+constexpr int kClusterThreads = 1024;
+constexpr int kClusterPer = kSliceMax / kClusterThreads;
+constexpr int kClusterRedFloats = 2 * (kClusterThreads / 32) * kRedValues;
 
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
@@ -228,7 +239,7 @@ __device__ __forceinline__ float warp_totals(const float (&v)[V], int lane) {
   return t;
 }
 
-template <int V, bool kLastIsMax = false>
+template <int V, bool kLastIsMax = false, int kT = kThreads>
 __device__ __forceinline__ float block_reduce(const float (&v)[V],
                                               float* red) {
   const int lane = threadIdx.x & 31;
@@ -240,7 +251,7 @@ __device__ __forceinline__ float block_reduce(const float (&v)[V],
     const bool mx = kLastIsMax && lane == V - 1;
     r = red[lane];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) {
+    for (int w = 1; w < kT / 32; ++w) {
       const float o = red[w * V + lane];
       r = mx ? fmaxf(r, o) : r + o;
     }
@@ -341,28 +352,30 @@ __device__ __forceinline__ float amp_of(float i, float q, bool tiny) {
   return sqrtf(i * i + q * q);
 }
 
-// Calls f(j, k) for each sample k of this thread: k = j * kThreads + tid.
-// With kPer > 0 the loop is unrolled and j indexes the thread's registers.
-template <int kPer, typename F>
+// Calls f(j, k) for each sample k of this thread: k = j * kT + tid (kT
+// threads a block). With kPer > 0 the loop is unrolled and j indexes the
+// thread's registers.
+template <int kPer, int kT = kThreads, typename F>
 __device__ __forceinline__ void for_samples(int n, F&& f) {
   if constexpr (kPer > 0) {
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
-      const int k = j * kThreads + threadIdx.x;
+      const int k = j * kT + threadIdx.x;
       if (k < n) f(j, k);
     }
   } else {
-    for (int k = threadIdx.x; k < n; k += kThreads) f(0, k);
+    for (int k = threadIdx.x; k < n; k += kT) f(0, k);
   }
 }
 
 // A block's totals that the other blocks of its cluster read: one slot a
-// reduction, each written once.
+// reduction, each written once; rank 0's g[r] receives block r's largest
+// |X|^2.
 struct ClusterXch {
   float s1[4];
   float v[kRedValues];
   float u[5];
-  float g;
+  float g[kMaxCluster];
 };
 
 // The cluster's totals from each block's block_reduce() result t (lane j
@@ -400,14 +413,16 @@ __device__ __forceinline__ float next_phase(const float* __restrict__ ph,
 
 // Features 2..18 of one frame into out[1..17] (written by thread 0). The
 // frame's I and Q (N samples each, device memory) are read once into the
-// shared xi, xq (at sw(k)); ph receives the phase; red holds kRedFloats.
-// kPer > 0 (N <= kThreads * kPer) keeps each sample's normalized amplitude
-// and wrapped frequency in registers. Called by every thread of the block; on
-// return the last barrier has passed every read of xi, xq and ph.
+// shared xi, xq (at sw(k)); ph receives the phase; red holds 2 (kT / 32)
+// kRedValues floats (kT threads a block). kPer > 0 (N <= kT * kPer) keeps
+// each sample's normalized amplitude and wrapped frequency in registers.
+// Called by every thread of the block; on return the last barrier has
+// passed every read of xi, xq and ph.
 // kCluster: the block holds slice r (its cluster rank) of n samples of a
-// frame of C n; the totals are the cluster's (through xch), the phase step
-// after the slice reads block r + 1's first phase, and only block 0 writes.
-template <int kPer, bool kCluster = false>
+// frame of C n, already in xi, xq (gi, gq are not read); the totals are the
+// cluster's (through xch), the phase step after the slice reads block
+// r + 1's first phase, and only block 0 writes.
+template <int kPer, bool kCluster = false, int kT = kThreads>
 __device__ void frame_stats(const float* __restrict__ gi,
                             const float* __restrict__ gq,
                             float* __restrict__ xi, float* __restrict__ xq,
@@ -418,7 +433,7 @@ __device__ void frame_stats(const float* __restrict__ gi,
   float cn_c[kSlots];  // pass 1: |x|; from pass 2 on: |x| / mean|x| - 1
   float fr_c[kSlots];  // wrapped frequency of the step k -> k+1
   float* red0 = red;
-  float* red1 = red + kWarps * kRedValues;
+  float* red1 = red + (kT / 32) * kRedValues;
   int len = n;             // samples of the frame
   int rank = 0;            // this block's slice
   bool tail_step = false;  // the slice's last sample has a next one
@@ -443,11 +458,18 @@ __device__ void frame_stats(const float* __restrict__ gi,
     s1[3] = fmaxf(s1[3], a);
   };
   unsigned key = ~0u;
-  for_samples<kPer>(n, [&](int j, int k) {
-    const float i = __ldg(gi + k);
-    const float q = __ldg(gq + k);
-    xi[sw(k)] = i;
-    xq[sw(k)] = q;
+  for_samples<kPer, kT>(n, [&](int j, int k) {
+    float i;
+    float q;
+    if constexpr (kCluster) {
+      i = xi[sw(k)];
+      q = xq[sw(k)];
+    } else {
+      i = __ldg(gi + k);
+      q = __ldg(gq + k);
+      xi[sw(k)] = i;
+      xq[sw(k)] = q;
+    }
     key = min(key, tiny_key(i, q));
     add1(j, k, sqrtf(i * i + q * q), phase_of(q, i));
   });
@@ -455,14 +477,14 @@ __device__ void frame_stats(const float* __restrict__ gi,
   const bool tiny = key < kTinyKey;
   if (tiny) {
     s1[0] = s1[1] = s1[2] = s1[3] = 0.f;
-    for_samples<kPer>(n, [&](int j, int k) {
+    for_samples<kPer, kT>(n, [&](int j, int k) {
       float p;
       const float a = polar(xi[sw(k)], xq[sw(k)], p);
       add1(j, k, a, p);
     });
   }
   // its barrier also publishes xi, xq, ph
-  float t1 = block_reduce<4, true>(s1, red0);
+  float t1 = block_reduce<4, true, kT>(s1, red0);
   float halo = 0.f;
   if constexpr (kCluster) {
     // its cluster barrier publishes every block's ph
@@ -484,7 +506,7 @@ __device__ void frame_stats(const float* __restrict__ gi,
   float v[kRedValues];
 #pragma unroll
   for (int j = 0; j < kRedValues; ++j) v[j] = 0.f;
-  for_samples<kPer>(n, [&](int j, int k) {
+  for_samples<kPer, kT>(n, [&](int j, int k) {
     const float i = xi[sw(k)];
     const float q = xq[sw(k)];
     float a;
@@ -535,7 +557,7 @@ __device__ void frame_stats(const float* __restrict__ gi,
     v[17] += x2r * a4;
     v[18] += a2 * a4;
   });
-  float t2 = block_reduce<kRedValues>(v, red1);
+  float t2 = block_reduce<kRedValues, false, kT>(v, red1);
   if constexpr (kCluster) t2 = cluster_combine<kRedValues>(t2, xch->v);
   const float mean_acn = lane_value(t2, 2) / fn;
   const float mean_cn = lane_value(t2, 3) / fn;
@@ -544,7 +566,7 @@ __device__ void frame_stats(const float* __restrict__ gi,
   // pass 3: centred second and fourth powers (std of |cn|, kurtosis of cn
   // and of the instantaneous frequency)
   float u[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  for_samples<kPer>(n, [&](int j, int k) {
+  for_samples<kPer, kT>(n, [&](int j, int k) {
     float cn;
     if constexpr (kPer > 0) {
       cn = cn_c[j];
@@ -572,7 +594,7 @@ __device__ void frame_stats(const float* __restrict__ gi,
       u[4] += fc2 * fc2;
     }
   });
-  float t3 = block_reduce<5>(u, red0);
+  float t3 = block_reduce<5, false, kT>(u, red0);
   if constexpr (kCluster) t3 = cluster_combine<5>(t3, xch->u);
 
   // the features from warp 0's copies of the totals, written by thread 0
@@ -1166,19 +1188,28 @@ __device__ __forceinline__ void dft(float (&re)[R], float (&im)[R]) {
   }
 }
 
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
 // One radix-R decimation-in-frequency pass in place over the n samples of
 // xr/xi (at sw()), on sub-transforms of length L (L / R a power of two, L >= R):
 // butterfly j of a block at base reads x[base + m*s] (s = L/R), takes its
 // R-point DFT, multiplies output k by W_L^{jk} = W_N^{jk n/L} (tw holds
 // W_N^m, m < n) and writes it to x[base + k*s]. Each butterfly reads and
-// writes its own R places, so the pass needs no barrier inside.
-template <int R>
+// writes its own R places, so the pass needs no barrier inside. kT threads
+// a block. kTwPow: only W_L^j is read from the table, and W_L^{jk} for
+// k >= 2 formed as products of table values (W^{2j} = W^j W^j, W^{3j} =
+// W^j W^{2j}, W^{4j} = W^{2j} W^{2j}, ..., at most three deep): one
+// coalesced load a butterfly in place of R - 1 strided ones, for a table
+// too large for L1.
+template <int R, int kT = kThreads, bool kTwPow = false>
 __device__ __forceinline__ void dif_pass(float* __restrict__ xr,
                                          float* __restrict__ xi, int n, int L,
                                          const float2* __restrict__ tw) {
   const int s = L / R;
   const int step = n / L;
-  for (int b = threadIdx.x; b < n / R; b += kThreads) {
+  for (int b = threadIdx.x; b < n / R; b += kT) {
     const int j = b & (s - 1);
     const int base = (b - j) * R + j;
     // sw() leaves bits 8 and up alone: a stride of 256 or more is added
@@ -1196,12 +1227,33 @@ __device__ __forceinline__ void dif_pass(float* __restrict__ xr,
       im[m] = xi[at[m]];
     }
     dft<R>(re, im);
+    if constexpr (kTwPow) {
+      float2 w[R];
+      w[1] = __ldg(tw + j * step);
+      if constexpr (R >= 4) {
+        w[2] = cmul(w[1], w[1]);
+        w[3] = cmul(w[1], w[2]);
+      }
+      if constexpr (R == 8) {
+        w[4] = cmul(w[2], w[2]);
+        w[5] = cmul(w[1], w[4]);
+        w[6] = cmul(w[2], w[4]);
+        w[7] = cmul(w[3], w[4]);
+      }
 #pragma unroll
-    for (int k = 1; k < R; ++k) {
-      const float2 w = __ldg(tw + j * k * step);
-      const float t = re[k] * w.x - im[k] * w.y;
-      im[k] = re[k] * w.y + im[k] * w.x;
-      re[k] = t;
+      for (int k = 1; k < R; ++k) {
+        const float t = re[k] * w[k].x - im[k] * w[k].y;
+        im[k] = re[k] * w[k].y + im[k] * w[k].x;
+        re[k] = t;
+      }
+    } else {
+#pragma unroll
+      for (int k = 1; k < R; ++k) {
+        const float2 w = __ldg(tw + j * k * step);
+        const float t = re[k] * w.x - im[k] * w.y;
+        im[k] = re[k] * w.y + im[k] * w.x;
+        re[k] = t;
+      }
     }
 #pragma unroll
     for (int m = 0; m < R; ++m) {
@@ -1214,12 +1266,12 @@ __device__ __forceinline__ void dif_pass(float* __restrict__ xr,
 // The last pass (L == R): R-point DFTs of consecutive groups, keeping only
 // the largest |X|^2 this thread sees. sw() keeps each aligned group of 4
 // together, so R >= 4 loads 16 bytes at a time.
-template <int R>
+template <int R, int kT = kThreads>
 __device__ __forceinline__ float last_pass_max(const float* __restrict__ xr,
                                                const float* __restrict__ xi,
                                                int n) {
   float mx = 0.f;
-  for (int b = threadIdx.x; b < n / R; b += kThreads) {
+  for (int b = threadIdx.x; b < n / R; b += kT) {
     float re[R];
     float im[R];
     if constexpr (R >= 4) {
@@ -1300,8 +1352,10 @@ __device__ void dft_stage1(float* __restrict__ xi, float* __restrict__ xq,
 }
 
 // max |X|^2 of the frame in xr/xi by the in-place FFT (N2 a power of two);
-// this thread's share of the maximum. Overwrites the frame and, where N1
-// is not a power of two, the scratch.
+// this thread's share of the maximum (kT threads a block; kTwPow: see
+// dif_pass). Overwrites the frame and, where N1 is not a power of two, the
+// scratch.
+template <int kT = kThreads, bool kTwPow = false>
 __device__ float gmax_fft(float* __restrict__ xr, float* __restrict__ xi,
                           float* __restrict__ scratch,
                           const float2* __restrict__ tw,
@@ -1311,17 +1365,23 @@ __device__ float gmax_fft(float* __restrict__ xr, float* __restrict__ xi,
                           const float* __restrict__ twi, int n, int n1,
                           int n2) {
   int L = n;
-  if (!is_pow2(n1)) {
-    dft_stage1(xr, xi, scratch, w1r, w1i, twr, twi, n1, n2);
-    L = n2;
+  // dft_stage1 runs on kThreads threads: other callers must give N1 a
+  // power of two, and stop here if they do not
+  if constexpr (kT == kThreads) {
+    if (!is_pow2(n1)) {
+      dft_stage1(xr, xi, scratch, w1r, w1i, twr, twi, n1, n2);
+      L = n2;
+    }
+  } else {
+    if (!is_pow2(n1)) __trap();
   }
   for (; L > 8; L /= 8) {
-    dif_pass<8>(xr, xi, n, L, tw);
+    dif_pass<8, kT, kTwPow>(xr, xi, n, L, tw);
     __syncthreads();
   }
-  if (L == 8) return last_pass_max<8>(xr, xi, n);
-  if (L == 4) return last_pass_max<4>(xr, xi, n);
-  return last_pass_max<2>(xr, xi, n);
+  if (L == 8) return last_pass_max<8, kT>(xr, xi, n);
+  if (L == 4) return last_pass_max<4, kT>(xr, xi, n);
+  return last_pass_max<2, kT>(xr, xi, n);
 }
 
 // max |X|^2 of the frame by stage 1 and the direct stage-2 product
@@ -1463,102 +1523,205 @@ __global__ void __launch_bounds__(kThreads, kFft ? kMinBlocks : 2)
   }
 }
 
-// gamma_max on the cluster route, for block k1 = rank of C = ranks blocks,
-// each holding an m-sample slice in xr/xi (at sw()): this thread's share of
-// max |X[k1 + C k2]|^2 over k2 < m. twn holds W_N^j (j < N = C m), tws
-// W_m^j (j < m). Overwrites the slice; on return no block of the cluster
-// reads it again.
-__device__ float cluster_gmax(float* __restrict__ xr, float* __restrict__ xi,
-                              const float2* __restrict__ twn,
-                              const float2* __restrict__ tws, int m, int rank,
-                              int ranks) {
-  cg::cluster_group cl = cg::this_cluster();
-  // W_C^{q k1} = W_N^{((q k1) mod C) m}
-  float2 wc[kMaxCluster];
-#pragma unroll
-  for (int q = 0; q < kMaxCluster; ++q) {
-    wc[q] = q < ranks ? __ldg(twn + ((q * rank) % ranks) * m)
-                      : make_float2(0.f, 0.f);
-  }
-  for (int c0 = 0; c0 < m; c0 += kThreads * kGmaxPer) {
-    // y[p] = W_N^{p k1} sum_q x[q m + p] W_C^{q k1} at this thread's places
-    // of the chunk, read from every slice
-    float yr[kGmaxPer];
-    float yi[kGmaxPer];
-#pragma unroll
-    for (int j = 0; j < kGmaxPer; ++j) {
-      const int p = c0 + j * kThreads + threadIdx.x;
-      float ar = 0.f;
-      float ai = 0.f;
-#pragma unroll
-      for (int q = 0; q < kMaxCluster; ++q) {
-        if (q < ranks) {
-          const float a = cl.map_shared_rank(xr, q)[sw(p)];
-          const float b = cl.map_shared_rank(xi, q)[sw(p)];
-          ar += wc[q].x * a - wc[q].y * b;
-          ai += wc[q].x * b + wc[q].y * a;
-        }
-      }
-      const float2 w = __ldg(twn + p * rank);
-      yr[j] = ar * w.x - ai * w.y;
-      yi[j] = ar * w.y + ai * w.x;
-    }
-    // every block has read these places of every slice
-    cl.sync();
-#pragma unroll
-    for (int j = 0; j < kGmaxPer; ++j) {
-      const int p = c0 + j * kThreads + threadIdx.x;
-      xr[sw(p)] = yr[j];
-      xi[sw(p)] = yi[j];
-    }
-  }
-  __syncthreads();
-  // the block route's FFT of length m (a power of two: no direct stage)
-  return gmax_fft(xr, xi, nullptr, tws, nullptr, nullptr, nullptr, nullptr, m,
-                  8, m / 8);
+// ---- K1's cluster route -------------------------------------------------
+
+// A 16-byte (4-byte) asynchronous copy from device memory to shared memory
+// (cp.async: no register holds the data on its way)
+__device__ __forceinline__ void cp_async16(float* s, const float* g) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(s))),
+               "l"(__cvta_generic_to_global(g))
+               : "memory");
 }
 
-// K1's cluster route: one cluster of C blocks per frame of the separate
-// (B, N) I and Q planes, N = C m; block r of the cluster of frame f holds
-// samples r m .. r m + m - 1 of frame f (blockIdx.x = f C + r).
-__global__ void __launch_bounds__(kThreads, 2)
+__device__ __forceinline__ void cp_async4(float* s, const float* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(s))),
+               "l"(__cvta_generic_to_global(g))
+               : "memory");
+}
+
+// The m samples (m a multiple of 4) of a slice's I and Q from device memory
+// into the shared xi, xq at sw(): every copy of the block in flight at once,
+// 16 bytes a copy where both planes are 16-byte aligned (sw() keeps each
+// aligned group of 4 together), else 4. Returns when the whole block sees
+// the slice.
+template <int kT>
+__device__ __forceinline__ void load_slice(const float* __restrict__ gi,
+                                           const float* __restrict__ gq,
+                                           float* __restrict__ xi,
+                                           float* __restrict__ xq, int m) {
+  if (((reinterpret_cast<uintptr_t>(gi) | reinterpret_cast<uintptr_t>(gq)) &
+       15) == 0) {
+    for (int k = 4 * threadIdx.x; k < m; k += 4 * kT) {
+      cp_async16(xi + sw(k), gi + k);
+      cp_async16(xq + sw(k), gq + k);
+    }
+  } else {
+    for (int k = threadIdx.x; k < m; k += kT) {
+      cp_async4(xi + sw(k), gi + k);
+      cp_async4(xq + sw(k), gq + k);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// The address of p (in this block's shared memory) in block r's shared
+// memory, in the cluster's shared window, and a load and a store there
+__device__ __forceinline__ unsigned cluster_addr(const void* p, int r) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))),
+                 "r"(r));
+  return a;
+}
+
+__device__ __forceinline__ float ld_cluster(unsigned a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_cluster(unsigned a, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(a), "f"(v)
+               : "memory");
+}
+
+// gamma_max's C-point DFT over the slices of the kC blocks of a cluster,
+// each holding m samples in xr/xi (at sw(); the planes np floats apart),
+// exchanged by place: block r reads places p in [r m / kC, (r + 1) m / kC)
+// of every slice, forms the kC outputs there,
+//   y_k1[p] = W_N^{p k1} sum_q x[q m + p] W_C^{q k1},
+// and stores y_k1[p] into block k1's slice at place p. Each place of each
+// slice is read and then written by one thread alone, so nothing waits
+// between the loads and the stores; the caller's cluster barriers come
+// before (every block's statistics have read its slice) and after (every
+// output is in place). twn holds W_N^j (j < N = kC m); W_C^j = W_N^{j m}.
+// A power-of-two kC takes the in-register DFT, others the direct sum.
+template <int kC, int kT>
+__device__ __forceinline__ void cluster_cdft(float* xr, int np,
+                                             const float2* __restrict__ twn,
+                                             int m, int rank) {
+  unsigned base[kC];  // xr of block q in the cluster's window
+#pragma unroll
+  for (int q = 0; q < kC; ++q) base[q] = cluster_addr(xr, q);
+  const unsigned im_off = 4u * np;
+  float2 wc[kC];  // W_C^j, read by the direct sum
+#pragma unroll
+  for (int j = 0; j < kC; ++j) wc[j] = __ldg(twn + j * m);
+  const int p1 = (rank + 1) * m / kC;
+  for (int p = rank * m / kC + threadIdx.x; p < p1; p += kT) {
+    const unsigned at = 4u * sw(p);
+    float re[kC];
+    float im[kC];
+#pragma unroll
+    for (int q = 0; q < kC; ++q) {
+      re[q] = ld_cluster(base[q] + at);
+      im[q] = ld_cluster(base[q] + at + im_off);
+    }
+    if constexpr ((kC & (kC - 1)) == 0) {
+      dft<kC>(re, im);
+    } else {
+      float yr[kC];
+      float yi[kC];
+#pragma unroll
+      for (int k = 0; k < kC; ++k) {
+        yr[k] = re[0];
+        yi[k] = im[0];
+#pragma unroll
+        for (int q = 1; q < kC; ++q) {
+          const float2 w = wc[(q * k) % kC];
+          yr[k] += re[q] * w.x - im[q] * w.y;
+          yi[k] += re[q] * w.y + im[q] * w.x;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kC; ++k) {
+        re[k] = yr[k];
+        im[k] = yi[k];
+      }
+    }
+#pragma unroll
+    for (int k = 1; k < kC; ++k) {
+      const float2 w = __ldg(twn + p * k);
+      const float t = re[k] * w.x - im[k] * w.y;
+      im[k] = re[k] * w.y + im[k] * w.x;
+      re[k] = t;
+    }
+#pragma unroll
+    for (int k = 0; k < kC; ++k) {
+      st_cluster(base[k] + at, re[k]);
+      st_cluster(base[k] + at + im_off, im[k]);
+    }
+  }
+}
+
+// K1's cluster route: one cluster of kC blocks of kClusterThreads threads a
+// frame of the separate (B, N) I and Q planes, N = kC m; block r of the
+// cluster of frame f holds samples r m .. r m + m - 1 of frame f
+// (blockIdx.x = f kC + r), at M = 16384 the only block of its SM. Five
+// cluster barriers a frame: three in the statistics, one after the C-point
+// DFT, one after each block has put its largest |X|^2 into rank 0's shared
+// memory; after the last no block reads another's shared memory, so every
+// block may leave.
+template <int kC>
+__global__ void __launch_bounds__(kClusterThreads, 1)
     fused_cluster_kernel(const float* __restrict__ gi,
                          const float* __restrict__ gq,
                          const float2* __restrict__ twn,
                          const float2* __restrict__ tws,
                          float* __restrict__ out, int n, int m, int normalize) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float cl_smem[];
   cg::cluster_group cl = cg::this_cluster();
-  const int ranks = static_cast<int>(cl.num_blocks());
   const int rank = static_cast<int>(cl.block_rank());
   const int np = plane_floats(m);
-  float* xi = smem;
-  float* xq = smem + np;
-  float* ph = smem + 2 * np;
+  float* xi = cl_smem;
+  float* xq = cl_smem + np;
+  float* ph = cl_smem + 2 * np;
   float* red = ph + m;
-  auto* xch = reinterpret_cast<ClusterXch*>(red + kRedFloats);
-  const size_t f = blockIdx.x / ranks;
+  auto* xch = reinterpret_cast<ClusterXch*>(red + kClusterRedFloats);
+  const size_t f = blockIdx.x / kC;
   float* row = out + f * kNumFeatures;
   const size_t at = f * n + static_cast<size_t>(rank) * m;
-  frame_stats<0, true>(gi + at, gq + at, xi, xq, ph, red, m, normalize != 0,
-                       row, xch);
-  float mx = cluster_gmax(xi, xq, twn, tws, m, rank, ranks);
+  load_slice<kClusterThreads>(gi + at, gq + at, xi, xq, m);
+  frame_stats<kClusterPer, true, kClusterThreads>(
+      nullptr, nullptr, xi, xq, ph, red, m, normalize != 0, row, xch);
+  // the statistics' last cluster barrier has passed every block's reads of
+  // its slice
+  cluster_cdft<kC, kClusterThreads>(xi, np, twn, m, rank);
+  cl.sync();
+  // the block route's FFT of length m (a power of two: no direct stage),
+  // its twiddles products of one table value a butterfly
+  float mx = gmax_fft<kClusterThreads, true>(xi, xq, nullptr, tws, nullptr,
+                                             nullptr, nullptr, nullptr, m, 8,
+                                             m / 8);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
   }
   // the last reduction (pass 3) used the first buffer and barriers have
   // passed since, so the second takes the block's maximum
-  float* red1 = red + kWarps * kRedValues;
+  float* red1 = red + (kClusterThreads / 32) * kRedValues;
   if ((threadIdx.x & 31) == 0) red1[threadIdx.x >> 5] = mx;
   __syncthreads();
-  float g = red1[0];
+  if (threadIdx.x == 0) {
+    float g = red1[0];
 #pragma unroll
-  for (int w = 1; w < kWarps; ++w) g = fmaxf(g, red1[w]);
-  g = cluster_combine<1, true>(g, &xch->g);
-  if (rank == 0 && threadIdx.x == 0) row[0] = g / static_cast<float>(n);
-  // no block leaves while another may still read its shared memory
+    for (int w = 1; w < kClusterThreads / 32; ++w) g = fmaxf(g, red1[w]);
+    st_cluster(cluster_addr(&xch->g[rank], 0), g);
+  }
   cl.sync();
+  if (rank == 0 && threadIdx.x == 0) {
+    float g = xch->g[0];
+#pragma unroll
+    for (int r = 1; r < kC; ++r) g = fmaxf(g, xch->g[r]);
+    row[0] = g / static_cast<float>(n);
+  }
 }
 
 size_t fused_smem_bytes(int n, bool fft) {
@@ -1584,12 +1747,14 @@ bool block_fits(int n1, int n2) {
   return fused_smem_bytes(n1 * n2, is_pow2(n2)) <= kSmemLimit;
 }
 
-// one block of the cluster route: the block route's FFT-path layout of an
-// m-sample slice, then the block's ClusterXch
+// one block of the cluster route: its m-sample slice's I and Q (padded for
+// sw()) and phase, its reduction scratch, then its ClusterXch
 size_t cluster_smem_bytes(int m) {
-  return fused_smem_bytes(m, true) + sizeof(ClusterXch);
+  return (static_cast<size_t>(2) * plane_floats(m) + m + kClusterRedFloats) *
+             sizeof(float) +
+         sizeof(ClusterXch);
 }
-static_assert((3 * kSliceMax + kRedFloats) * sizeof(float) +
+static_assert((3 * kSliceMax + kClusterRedFloats) * sizeof(float) +
                       sizeof(ClusterXch) <= kSmemLimit,
               "the longest slice fits one block");
 
@@ -1624,14 +1789,30 @@ int cluster_size(int n) {
   return 0;
 }
 
+using ClusterKernel = void (*)(const float*, const float*, const float2*,
+                               const float2*, float*, int, int, int);
+
+// The cluster route's kernel for clusters of c blocks (2 <= c <= 8)
+ClusterKernel cluster_kernel(int c) {
+  switch (c) {
+    case 2: return fused_cluster_kernel<2>;
+    case 3: return fused_cluster_kernel<3>;
+    case 4: return fused_cluster_kernel<4>;
+    case 5: return fused_cluster_kernel<5>;
+    case 6: return fused_cluster_kernel<6>;
+    case 7: return fused_cluster_kernel<7>;
+    default: return fused_cluster_kernel<8>;
+  }
+}
+
 // The launch of the cluster route for batches of b frames of n = c m
-// samples: b c blocks in clusters of (c, 1, 1). attr is the storage of the
-// config's one attribute.
+// samples: b c blocks of kClusterThreads in clusters of (c, 1, 1). attr is
+// the storage of the config's one attribute.
 cudaLaunchConfig_t cluster_config(int b, int c, size_t smem, cudaStream_t st,
                                   cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(b) * c, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.blockDim = dim3(kClusterThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -1669,20 +1850,38 @@ int amc_fused_route(int n, int* c) {
 // Clusters of the cluster route for frames of n samples that the card can
 // hold at once (cudaOccupancyMaxActiveClusters; 0: it cannot launch one),
 // or a negative CUDA error, -cudaErrorInvalidValue where n is not on the
-// route.
-int amc_fused_cluster_occupancy(int n) {
+// route. *blocks_per_sm receives the blocks of that kernel, at its shared
+// memory, that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int amc_fused_cluster_occupancy(int n, int* blocks_per_sm) {
   const int c = cluster_size(n);
   if (c == 0) return -static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = cluster_smem_bytes(n / c);
-  cudaError_t err = set_smem(fused_cluster_kernel, smem);
+  const ClusterKernel kernel = cluster_kernel(c);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, kClusterThreads, smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(1, c, smem, nullptr, &attr);
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(
-      &clusters, reinterpret_cast<const void*>(fused_cluster_kernel), &cfg);
+      &clusters, reinterpret_cast<const void*>(kernel), &cfg);
   if (err != cudaSuccess) return -static_cast<int>(err);
   return clusters;
+}
+
+// The cluster route's launch for frames of n samples: returns C (0 where
+// amc_fused_route does not take the cluster route) and sets *threads to a
+// block's threads and *smem to its bytes of dynamic shared memory (0 both
+// off the route).
+int amc_fused_cluster_shape(int n, int* threads, int* smem) {
+  int c = 0;
+  if (amc_fused_route(n, &c) != 2) c = 0;
+  *threads = c != 0 ? kClusterThreads : 0;
+  *smem = c != 0 ? static_cast<int>(cluster_smem_bytes(n / c)) : 0;
+  return c;
 }
 
 // 1 if K2 can hold a frame of size n (its block route keeps the frame in
@@ -1717,11 +1916,12 @@ int amc_fused_features(const float* i, const float* q, const float* tw,
   if (!block) {
     const int m = n / c;
     const size_t smem = cluster_smem_bytes(m);
-    err = set_smem(fused_cluster_kernel, smem);
+    const ClusterKernel kernel = cluster_kernel(c);
+    err = set_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = cluster_config(b, c, smem, st, &attr);
-    err = cudaLaunchKernelEx(&cfg, fused_cluster_kernel, i, q, tw2,
+    err = cudaLaunchKernelEx(&cfg, kernel, i, q, tw2,
                              reinterpret_cast<const float2*>(tws), out, n, m,
                              normalize);
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -42,7 +42,8 @@ SIGNATURES: dict[str, dict[str, tuple[list, object]]] = {
     "features": {
         "amc_fused_features": ([_P] * 11 + [_I] * 5 + [_P], _I),
         "amc_fused_route": ([_I, ctypes.POINTER(_I)], _I),
-        "amc_fused_cluster_occupancy": ([_I], _I),
+        "amc_fused_cluster_occupancy": ([_I, ctypes.POINTER(_I)], _I),
+        "amc_fused_cluster_shape": ([_I, ctypes.POINTER(_I), ctypes.POINTER(_I)], _I),
         "amc_stats_features": ([_P, _P, _I, _I, _I, _P], _I),
         "amc_fused_gmax_path": ([_I], _I),
         "amc_stats_fits": ([_I], _I),

@@ -12,10 +12,11 @@ routes, chosen by N alone (:func:`fused_route`, the library's
   ~19,000). Where N2 is a power of two (every power-of-two N) gamma_max is
   an FFT in the block (its plan is :func:`amcpy_tpu_torch.ops.fft.fft_plan`);
   else the direct two-stage N1 x N2 DFT. :func:`gmax_path` says which.
-* ``"cluster"``: one thread-block cluster of C blocks a frame, for longer
-  frames of N = C x M, 2 <= C <= 8 (the smallest that serves), M a power of
-  two in [2048, 16384]; block r holds samples r M .. r M + M - 1 and the
-  blocks read each other's shared memory.
+* ``"cluster"``: one thread-block cluster of C blocks of 1024 threads a
+  frame, for longer frames of N = C x M, 2 <= C <= 8 (the smallest that
+  serves), M a power of two in [2048, 16384]; block r holds samples
+  r M .. r M + M - 1 and the blocks read and write each other's shared
+  memory. :func:`cluster_shape` gives the launch.
 
 Frames that neither route holds (``"none"``: no factorization, or too long
 and not of that form) make :func:`extract_features_fused` raise;
@@ -48,10 +49,12 @@ from amcpy_tpu_torch.ops.fft import (
 
 __all__ = [
     "cluster_occupancy",
+    "cluster_shape",
     "extract_features_fused",
     "extract_features_fused_any",
     "fused_route",
     "gmax_path",
+    "library_cluster_shape",
     "library_route",
     "split_planes",
 ]
@@ -65,6 +68,8 @@ _DIRECT_FLOATS = 2 * 32 * 128
 #: the cluster route: C in [2, CLUSTER_MAX], slices of M in [SLICE_MIN, SLICE_MAX]
 CLUSTER_MAX = 8
 SLICE_MIN, SLICE_MAX = 2048, 16384
+#: threads of a cluster route block (``kClusterThreads``)
+CLUSTER_THREADS = 1024
 #: ``amc_fused_route``'s codes
 _LIB_ROUTES = {1: "block", 2: "cluster", 0: "none"}
 
@@ -106,6 +111,29 @@ def fused_route(n: int) -> tuple[str, int]:
     return "none", 0
 
 
+def cluster_shape(n: int) -> tuple[int, int, int]:
+    """The cluster route's launch for frames of ``n`` samples, as the
+    library sets it (``amc_fused_cluster_shape``): (C, M, threads a block);
+    ``(0, 0, 0)`` where :func:`fused_route` does not take the cluster route.
+    A plain function: it builds nothing."""
+    route, c = fused_route(n)
+    if route != "cluster":
+        return 0, 0, 0
+    return c, n // c, CLUSTER_THREADS
+
+
+def library_cluster_shape(n: int) -> tuple[int, int, int, int]:
+    """``amc_fused_cluster_shape`` of the built library: :func:`cluster_shape`
+    and the bytes of dynamic shared memory a block (0 off the route; builds
+    the library at first use)."""
+    from amcpy_tpu_torch.ops import _build
+
+    threads, smem = ctypes.c_int(-1), ctypes.c_int(-1)
+    c = _build.load("features").amc_fused_cluster_shape(
+        n, ctypes.byref(threads), ctypes.byref(smem))
+    return c, n // c if c else 0, threads.value, smem.value
+
+
 def library_route(n: int) -> tuple[str, int]:
     """``amc_fused_route`` of the built library (builds it at first use)."""
     from amcpy_tpu_torch.ops import _build
@@ -116,17 +144,20 @@ def library_route(n: int) -> tuple[str, int]:
 
 
 @lru_cache(maxsize=None)
-def cluster_occupancy(n: int, device_index: int) -> int:
-    """Clusters of the cluster route at ``n`` samples a frame that card
-    ``device_index`` holds at once (``cudaOccupancyMaxActiveClusters``)."""
+def cluster_occupancy(n: int, device_index: int) -> tuple[int, int]:
+    """The cluster route at ``n`` samples a frame on card ``device_index``:
+    the clusters it holds at once (``cudaOccupancyMaxActiveClusters``) and
+    the blocks one SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     from amcpy_tpu_torch.ops import _build
 
     lib = _build.load("features")
+    blocks = ctypes.c_int(-1)
     with torch.cuda.device(device_index):
-        clusters = lib.amc_fused_cluster_occupancy(n)
+        clusters = lib.amc_fused_cluster_occupancy(n, ctypes.byref(blocks))
     if clusters < 0:
         _build.check(lib, -clusters, "amc_fused_cluster_occupancy")
-    return clusters
+    return clusters, blocks.value
 
 
 def _check_planes(i: torch.Tensor, q: torch.Tensor) -> None:
@@ -179,7 +210,7 @@ def extract_features_fused(
     from amcpy_tpu_torch.ops import _build
 
     lib = _build.load("features")
-    if route == "cluster" and cluster_occupancy(n, i.device.index or 0) == 0:
+    if route == "cluster" and cluster_occupancy(n, i.device.index or 0)[0] == 0:
         raise RuntimeError(
             f"the card cannot hold one cluster of {c} blocks of the fused "
             f"kernel at frame size {n}"

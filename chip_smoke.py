@@ -31,8 +31,9 @@ Phases, each printing one JSON line:
    the mma.sync kernel, each check printing the kernel that ran; times
    of the kernel, of the plain version, of one PyTorch library call where
    one computes the same function, and for K3 of the module forward (K1's
-   cluster route at 128 x 65536, the 4096 x 2048 row's samples, and at
-   64 x 131072);
+   cluster route at 128 x 65536 and 256 x 32768, the 4096 x 2048 row's
+   samples, and at 64 x 131072, each with its launch: threads a block,
+   warps an SM, clusters at once and waves);
 4. extraction — the main path: a numpy-made ``all_modulations.mat`` at the
    default config (6 modulations x 16 SNR x 1000 frames x 2048 samples)
    through ``run_extraction`` with ``kernel="auto"``; six artifacts of
@@ -117,8 +118,9 @@ Phases, each printing one JSON line:
    ``probs=1`` request, a frame-size mismatch (400) and ``/healthz``
    (naming the card); the host path's ``to_device`` of a 4096-frame
    request, complex and planar; ``shutdown()`` while eight clients post
-   (every client returns); a server with a 1 KiB resident budget (a
-   one-frame request gets 503);
+   (every client ends within 60 s by an answer, an error status, a reset
+   or a refusal; a lost connect is made again); a server with a 1 KiB
+   resident budget (a one-frame request gets 503);
 12. wire — ``wire_format: int24``: one 4096-frame request through the MLP
    fixture's int24 serving program (one K1 launch; logits within 1e-3 of
    the float32 program, at least 99 % identical argmax) and one 4096-frame
@@ -231,6 +233,7 @@ warpgroup route.
 from __future__ import annotations
 
 import copy
+import http.client
 import json
 import re
 import shutil
@@ -490,6 +493,7 @@ def phase_kernels(torch, dev) -> dict[str, dict]:
         extract_features_fused,
         fused_route,
         gmax_path,
+        library_cluster_shape,
         library_route,
     )
     from amcpy_tpu_torch.ops.pallas_features import extract_features_pallas, stats_path
@@ -545,7 +549,7 @@ def phase_kernels(torch, dev) -> dict[str, dict]:
             check["gmax_path"] = gmax_path(n)
         else:
             check["cluster"] = c
-            check["max_active_clusters"] = cluster_occupancy(n, dev.index or 0)
+            check["max_active_clusters"] = cluster_occupancy(n, dev.index or 0)[0]
         checks.append(check)
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["max_err_over_tol"] = max(row["max_err_over_tol"], ratio)
@@ -553,7 +557,14 @@ def phase_kernels(torch, dev) -> dict[str, dict]:
             time_k1(k1, i, q, b, n)
             k1["gmax_path"] = gmax_path(n)
         elif (b, n) in K1_CLUSTER_TIMED:
-            at = {"cluster": c}
+            # the launch as the library sets it: C, threads and shared
+            # memory a block; the card's occupancy query: warps an SM, the
+            # clusters it holds at once and the waves of them the batch takes
+            _, _, threads, smem = library_cluster_shape(n)
+            clusters, blocks = cluster_occupancy(n, dev.index or 0)
+            at = {"cluster": c, "threads": threads, "smem_bytes": smem,
+                  "warps_per_sm": threads // 32 * blocks,
+                  "max_active_clusters": clusters, "waves": b / clusters}
             time_k1(at, i, q, b, n)
             k1c["timed"][f"{b}x{n}"] = at
             if (b, n) == K1_CLUSTER_TIMED[0]:
@@ -615,14 +626,17 @@ def phase_kernels(torch, dev) -> dict[str, dict]:
 
 #: K1's checks (b, n): the main path's shape and both gamma_max paths of
 #: the block route (the direct one at 1000 and 88), then the cluster route
-#: at C = 2 ... 8 (65536 = 4 x 16384 at the 4096 x 2048 row's 8.4 M samples,
-#: 131072 = 8 x 16384, 20480 = 5 x 4096, 24576 = 3 x 8192, ...)
+#: at C = 2 ... 8 (65536 = 4 x 16384 and 32768 = 2 x 16384 at the 4096 x
+#: 2048 row's 8.4 M samples, 131072 = 8 x 16384, 20480 = 5 x 4096, 24576 =
+#: 3 x 8192, ...)
 K1_CHECKS = [(4096, 2048), (1000, 2048), (37, 1024), (64, 256), (2, 16384),
              (3, 12288), (50, 1000), (7, 88),
-             (128, 65536), (64, 131072), (3, 20480), (3, 24576), (2, 32768),
-             (2, 49152), (2, 81920), (2, 98304), (2, 114688)]
-#: the cluster route's timed shapes; the first is its kernels-line row
-K1_CLUSTER_TIMED = [(128, 65536), (64, 131072)]
+             (128, 65536), (64, 131072), (256, 32768), (3, 20480), (3, 24576),
+             (2, 32768), (2, 49152), (2, 81920), (2, 98304), (2, 114688)]
+#: the cluster route's timed shapes (C = 4, 8, 2); the first is its
+#: kernels-line row
+K1_CLUSTER_TIMED = [(128, 65536), (64, 131072), (256, 32768)]
+
 
 #: K2's checks (b, n): the main path's shape and the warpgroup route's
 #: scalar loads (N % 4 != 0: 1023, 6) and ragged last block (b = 5, 3) on
@@ -1578,19 +1592,43 @@ def phase_server(torch, dev, cfg, flat, order, mlp_id, counts, zero_counts, path
 
 def shutdown_in_flight(srv, flat) -> dict:
     """``shutdown()`` while eight clients post in a loop; every client must
-    return (an answer, an error status or a refused connection)."""
+    end by the server's doing within 60 s: an answer, an error status, a
+    reset or a refused connection. A request that waits out its reply
+    timeout fails the check. A connect that times out is made again: the
+    server never saw it (a sandboxed network stack can lose a
+    handshake under a burst of connects), and a connect after the shutdown
+    is refused."""
     host, port = srv.address
     body = flat[:100].tobytes()
     answered: list[int] = []
+    ends: list[str] = []
+    retries: list[int] = []
 
     def client():
         while True:
+            conn = http.client.HTTPConnection(host, port, timeout=SHUTDOWN_CONNECT_S)
             try:
-                status, _ = http_json(f"http://{host}:{port}/classify", body, timeout=60)
-            except (urllib.error.URLError, OSError):
+                try:
+                    conn.connect()
+                except TimeoutError:
+                    retries.append(1)
+                    continue
+                conn.sock.settimeout(60)
+                conn.request("POST", "/classify", body=body,
+                             headers={"Connection": "close"})
+                r = conn.getresponse()
+                r.read()
+            except TimeoutError:
+                ends.append("reply timeout")
                 return
-            answered.append(status)
-            if status != 200:
+            except (OSError, http.client.HTTPException) as e:  # refused or reset
+                ends.append(type(e).__name__)
+                return
+            finally:
+                conn.close()
+            answered.append(r.status)
+            if r.status != 200:
+                ends.append(f"status {r.status}")
                 return
 
     threads = [threading.Thread(target=client, daemon=True) for _ in range(CLIENTS)]
@@ -1600,12 +1638,20 @@ def shutdown_in_flight(srv, flat) -> dict:
     t0 = time.perf_counter()
     srv.shutdown()
     for t in threads:
-        t.join(timeout=60)
+        t.join(timeout=max(0.0, 60 - (time.perf_counter() - t0)))
     alive = sum(t.is_alive() for t in threads)
-    if alive or not answered:
-        raise AssertionError(f"{alive} clients still waiting after shutdown")
+    if alive or not answered or "reply timeout" in ends:
+        raise AssertionError(f"after shutdown: {alive} clients still waiting, "
+                             f"{len(answered)} answers, ends {ends}")
     return {"clients": CLIENTS, "answers": len(answered),
-            "statuses": sorted(set(answered)), "all_returned_s": time.perf_counter() - t0}
+            "statuses": sorted(set(answered)), "ends": sorted(set(ends)),
+            "connects_retried": len(retries),
+            "all_returned_s": time.perf_counter() - t0}
+
+
+#: a shutdown_in_flight client's connect timeout, after which it connects
+#: again
+SHUTDOWN_CONNECT_S = 5.0
 
 
 def phase_wire(torch, dev, cfg, flat, order, counts, zero_counts, paths) -> dict:
@@ -2282,16 +2328,18 @@ def main() -> int:
     if len(wg_ptxas) != 1:
         raise AssertionError("ptxas reported no stats_wg_kernel<true>")
 
-    # K1's cluster kernel: registers and spills, for its row
-    cluster_ptxas = [r for entry, r in ptxas_report(logs["features"]).items()
-                     if "fused_cluster_kernel" in entry]
-    if len(cluster_ptxas) != 1:
-        raise AssertionError("ptxas reported no fused_cluster_kernel")
+    # K1's cluster kernels (one a cluster size C): registers and spills,
+    # the row's of its timed C = 4
+    cluster_ptxas = {int(m[1]): r for entry, r in ptxas_report(logs["features"]).items()
+                     if (m := re.search(r"fused_cluster_kernelILi(\d)E", entry))}
+    if sorted(cluster_ptxas) != list(range(2, 9)):
+        raise AssertionError(f"ptxas reported fused_cluster_kernel for C = {sorted(cluster_ptxas)}")
 
     rows = phase_kernels(torch, dev)
     rows["cnn_trunk"].update(wgmma_ptxas[0])
     rows["pallas"].update(wg_ptxas[0])
-    rows["fused_cluster"].update(cluster_ptxas[0])
+    rows["fused_cluster"].update(cluster_ptxas[rows["fused_cluster"]["cluster"]])
+    rows["fused_cluster"]["ptxas_by_cluster"] = cluster_ptxas
 
     work = Path(tempfile.mkdtemp(prefix="amc_chip_smoke_"))
     try:
@@ -2690,10 +2738,17 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
             # K1: how gamma_max was computed at the timed shape (block
-            # route); the cluster size and every timed shape (cluster route)
+            # route); the cluster size, the launch (threads a block, warps
+            # an SM, clusters at once, waves) and every timed shape
+            # (cluster route), registers and spills by cluster size
             "gmax_path": r.get("gmax_path"),
             "cluster": r.get("cluster"),
+            "threads": r.get("threads"),
+            "warps_per_sm": r.get("warps_per_sm"),
+            "max_active_clusters": r.get("max_active_clusters"),
+            "waves": r.get("waves"),
             "timed": r.get("timed"),
+            "ptxas_by_cluster": r.get("ptxas_by_cluster"),
             # K3: the module forward's time on the same frames, the three
             # times its bound is the largest of; K2 and K3: the kernel that
             # ran at the timed shape, and that kernel's registers and spills

@@ -117,3 +117,4 @@ def test_k2_checks_cover_both_paths():
     assert any(n % 4 for _, n in warpgroup)
     assert any(b % 2 for b, _ in warpgroup)  # a ragged last block of two frames
     assert any(n == 2049 for _, n in cs.K2_CHECKS)
+

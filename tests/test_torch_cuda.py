@@ -304,10 +304,15 @@ def test_k2_unaligned_input_on_card(cuda):
 
 
 #: frame sizes of K1's cluster route, C = 2 ... 8 (``fused_route``)
-CLUSTER_SIZES = [20480, 24576, 32768, 49152, 65536, 81920, 98304, 114688, 131072]
+CLUSTER_SIZES = [20480, 24576, 28672, 32768, 40960, 49152, 57344, 65536, 81920, 98304,
+                 114688, 131072]
 #: the long frame of the edge cases: four slices of 16384 samples
 LONG_N = 65536
 LONG_M = 16384
+#: batches around the waves of clusters an H100 holds at once (30 of C = 4
+#: at 65536, 15 of C = 8 at 131072): a lone frame, a wave less one, one
+#: wave, one more, and several waves with a ragged last one
+WAVE_BATCHES = {65536: (1, 29, 30, 31, 121, 128, 257), 131072: (1, 15, 16, 64)}
 
 
 @pytest.mark.parametrize("n", CLUSTER_SIZES)
@@ -315,11 +320,14 @@ def test_cluster_route_matches_plain_on_card(cuda, n):
     """Frames past one block's shared memory: one cluster of C blocks a
     frame, within K1's bar of the plain version, counted on the cluster
     route alone; normalized and not (the x^6 sums then need a narrower
-    scale spread)."""
+    scale spread); at 65536 and 131072 also batches across the waves of
+    clusters the card holds at once, every frame to the last."""
     route, c = fused_route(n)
     assert route == "cluster" and 2 <= c <= 8
-    for normalize, spread in ((True, 6.0), (False, 1.0)):
-        x = _frames(3, n, seed=n, spread=spread)
+    cases = [(3, True, 6.0, n), (3, False, 1.0, n)]
+    cases += [(b, True, 6.0, n + b) for b in WAVE_BATCHES.get(n, ())]
+    for b, normalize, spread, seed in cases:
+        x = _frames(b, n, seed=seed, spread=spread)
         i, q = _planes(x, cuda)
         got, ran = _k1_launch(i, q, normalize_scale=normalize)
         assert ran == ["cluster"]
@@ -438,7 +446,34 @@ def test_fused_route_follows_the_library(cuda):
     assert not wrong, wrong[:10]
     for c in range(2, 9):
         assert fused_route(c * LONG_M) == ("cluster", c)
-        assert cluster_occupancy(c * LONG_M, 0) > 0
+        assert cluster_occupancy(c * LONG_M, 0)[0] > 0
+
+
+def test_cluster_shape_follows_the_library(cuda):
+    """``cluster_shape``, the plain mirror of the cluster route's launch (C,
+    M, threads a block), equals the library's ``amc_fused_cluster_shape`` at
+    every multiple of 32 up to 140,000 and at the edges, (0, 0, 0) off the
+    route; the library gives no shared memory off the route; and at the
+    route's C = 2 ... 8 a block fits one block's shared memory and the card
+    holds a cluster of such blocks, at least one an SM."""
+    from amcpy_tpu_torch.ops.fused import (
+        SMEM_LIMIT,
+        cluster_occupancy,
+        cluster_shape,
+        library_cluster_shape,
+    )
+
+    sizes = list(range(32, 140_000, 32)) + [10, 88, 1000, 16383, 18944, 18945, 20480,
+                                            36864, 1 << 19]
+    lib = {n: library_cluster_shape(n) for n in sizes}
+    wrong = [n for n in sizes
+             if lib[n][:3] != cluster_shape(n) or (lib[n][0] == 0) != (lib[n][3] == 0)]
+    assert not wrong, [(n, cluster_shape(n), lib[n]) for n in wrong[:5]]
+    for n in CLUSTER_SIZES:
+        c, m, threads, smem = library_cluster_shape(n)
+        assert (c, m) == (fused_route(n)[1], n // c) and threads == 1024
+        clusters, blocks = cluster_occupancy(n, 0)
+        assert 0 < smem <= SMEM_LIMIT and clusters > 0 and blocks >= 1
 
 
 def test_long_frames_through_the_entry_points_on_card(cuda, tmp_path):

@@ -6,10 +6,13 @@ float64 oracle, and a numpy model of the cluster route's arithmetic.
 On the CPU the wrapper takes its plain version, so the CUDA kernel itself
 is held to that version on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``). The model here pins the index arithmetic the kernel
-implements before a card runs it: the C-point DFT over the slices, the W_N
+implements before a card runs it: the C-point DFT over the slices
+exchanged by place (block r reads its share of the places of every slice
+and stores output k1 at those places into block k1's slice), the W_N
 twiddle and the length-M FFT behind gamma_max, and the slices' partial
 sums combined in rank order, the tiny-sample key and the phase step across
-each slice boundary behind the statistics.
+each slice boundary behind the statistics; and the launch's shape
+(``cluster_shape``, the plain mirror of the library's).
 
 Tolerances: the port against JAX ``2e-4 * term_scales + 2e-5 * |want|``
 (``tests/test_fused.py``); against the float64 oracle, and the model
@@ -24,6 +27,9 @@ from amcpy_tpu.extraction import extract_batch as jax_extract_batch
 from amcpy_tpu_torch.extraction import extract_batch
 from amcpy_tpu_torch.ops.fft import fft_twiddles
 from amcpy_tpu_torch.ops.fused import (
+    SLICE_MAX,
+    SLICE_MIN,
+    cluster_shape,
     extract_features_fused,
     extract_features_fused_any,
     fused_route,
@@ -59,6 +65,52 @@ def test_fused_route_rule(n, want, monkeypatch):
 
     monkeypatch.setattr(_build, "load", no_build)
     assert fused_route(n) == want
+
+
+@pytest.mark.parametrize(
+    "n,want",
+    [(20480, (5, 4096, 1024)), (24576, (3, 8192, 1024)),
+     (32768, (2, 16384, 1024)), (65536, (4, 16384, 1024)),
+     (131072, (8, 16384, 1024)), (BLOCK_MAX, (0, 0, 0)),
+     (36864, (0, 0, 0)), (1 << 19, (0, 0, 0))],
+)
+def test_cluster_shape_rule(n, want, monkeypatch):
+    """The cluster route's launch: C and M of the route and 1024 threads a
+    block; nothing off the route. Built from nothing (the card tests hold it
+    equal to the library's ``amc_fused_cluster_shape``, which also gives a
+    block's shared memory)."""
+    from amcpy_tpu_torch.ops import _build
+
+    def no_build(name):
+        raise AssertionError("cluster_shape must not build the library")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    assert cluster_shape(n) == want
+
+
+#: every N the cluster route holds (C = 2 ... 8 the smallest, M a power of
+#: two in [2048, 16384], N past one block), as it did before its launch
+#: took 1024 threads a block
+CLUSTER_ROUTE_SIZES = [20480, 24576, 28672, 32768, 40960, 49152, 57344, 65536,
+                       81920, 98304, 114688, 131072]
+
+
+def test_the_cluster_route_holds_the_sizes_it_held():
+    """No N leaves the cluster route or joins it: the multiples of 32 up to
+    140,000 that take it are exactly ``CLUSTER_ROUTE_SIZES``."""
+    got = [n for n in range(32, 140_000, 32) if fused_route(n)[0] == "cluster"]
+    assert got == CLUSTER_ROUTE_SIZES
+
+
+@pytest.mark.parametrize("n", CLUSTER_ROUTE_SIZES)
+def test_every_cluster_route_size_has_a_launch_that_fits(n):
+    """Each N of the route keeps a kernel launch: C and M of the route,
+    1024 threads a block, M within [2048, 16384] (the library asserts that
+    the longest slice fits one block's shared memory) and whole 16-byte
+    groups a slice (the slice's asynchronous copy)."""
+    c, m, threads = cluster_shape(n)
+    assert (c, c * m) == (fused_route(n)[1], n) and threads == 1024
+    assert SLICE_MIN <= m <= SLICE_MAX and m % 4 == 0
 
 
 def test_block_route_ends_where_the_cluster_route_begins():
@@ -143,21 +195,40 @@ def _tiny_keys(i, q):
             - np.uint32(1))
 
 
-def model_gmax(x, c):
+def cluster_places(m, c, r):
+    """The places of every slice that block r of a cluster of c reads and
+    writes in gamma_max's C-point DFT: [r m / c, (r + 1) m / c)."""
+    return np.arange(r * m // c, (r + 1) * m // c)
+
+
+def model_gmax(x, c, touched=None):
     """X[k1 + C k2] by the cluster route's decomposition, as a (C, M) array
-    [k1, k2]: block k1's C-point DFT over the slices with W_C^{q k1} =
-    W_N^{((q k1) mod C) M}, times W_N^{m k1} (both from the N-entry table),
-    then the length-M FFT of the result."""
+    [k1, k2], in the kernel's data flow: the C slices in the blocks' shared
+    memory; block r, in rank order, loads its places (``cluster_places``) of
+    every slice, forms the C outputs there (output k1 = sum over q in order
+    of x_q W_C^{q k1}, W_C^{j} = W_N^{j M}, times W_N^{p k1}, both from the
+    N-entry table) and stores output k1 into slice k1 at the same places;
+    then block k1 takes the length-M FFT of its slice. ``touched``, where
+    given, (C, M) counts, receives the loads and the stores of each place of
+    each slice by any block."""
     n = x.size
     m = n // c
     tw = fft_twiddles(n).astype(np.float64) @ np.array([1, 1j])
-    slices = x.astype(np.complex128).reshape(c, m)
-    out = np.empty((c, m), np.complex128)
-    for k1 in range(c):
-        wc = tw[((np.arange(c) * k1) % c) * m]
-        y = (wc[:, None] * slices).sum(0) * tw[np.arange(m) * k1]
-        out[k1] = np.fft.fft(y)
-    return out
+    shared = x.astype(np.complex128).reshape(c, m).copy()
+    for r in range(c):
+        p = cluster_places(m, c, r)
+        loaded = shared[:, p].copy()
+        if touched is not None:
+            touched[:, p] += 1
+        for k1 in range(c):
+            wc = tw[((np.arange(c) * k1) % c) * m]
+            y = np.zeros(len(p), np.complex128)
+            for q in range(c):
+                y += wc[q] * loaded[q]
+            shared[k1, p] = y * tw[p * k1]
+            if touched is not None:
+                touched[k1, p] += 1
+    return np.stack([np.fft.fft(shared[k1]) for k1 in range(c)])
 
 
 def model_features(x, c, normalize=True):
@@ -263,15 +334,32 @@ def _model_frames(c, m, seed):
 
 @pytest.mark.parametrize("c", [2, 3, 5, 8])
 def test_model_gmax_decomposition_matches_numpy_fft(c):
-    """X[k1 + C k2] from the C-point DFT over the slices, the W_N^{m k1}
-    twiddle and the length-M FFT equals ``np.fft.fft`` of the whole frame
-    (within the float32 rounding of the twiddle table)."""
+    """X[k1 + C k2] from the C-point DFT over the slices exchanged by
+    place, the W_N^{m k1} twiddle and the length-M FFT equals ``np.fft.fft``
+    of the whole frame (within the float32 rounding of the twiddle table);
+    every place of every slice is loaded once and stored once, by the one
+    block whose share of the places holds it."""
     m = 256
     x = _frames(1, c * m, seed=c)[0]
-    got = model_gmax(x, c)
+    touched = np.zeros((c, m), int)
+    got = model_gmax(x, c, touched)
     want = np.fft.fft(x.astype(np.complex128))
     natural = got.T.reshape(-1)  # [k2, k1] -> k = k1 + C k2
     assert np.abs(natural - want).max() <= 1e-6 * np.abs(want).max()
+    np.testing.assert_array_equal(touched, 2)
+    owners = np.concatenate([cluster_places(m, c, r) for r in range(c)])
+    np.testing.assert_array_equal(owners, np.arange(m))
+
+
+@pytest.mark.parametrize("c,m", [(3, 8192), (5, 4096), (5, 8192), (7, 4096), (7, 8192)])
+def test_cluster_places_split_slices_the_route_holds(c, m):
+    """At the route's C that do not divide M (24576 = 3 x 8192, 20480 =
+    5 x 4096, ...) the blocks' shares of the places still cover the slice
+    once, in order, and differ by at most one place."""
+    parts = [cluster_places(m, c, r) for r in range(c)]
+    np.testing.assert_array_equal(np.concatenate(parts), np.arange(m))
+    sizes = [len(p) for p in parts]
+    assert max(sizes) - min(sizes) <= 1 and fused_route(c * m) == ("cluster", c)
 
 
 @pytest.mark.parametrize("c,m", [(2, 2048), (3, 1024), (5, 512), (8, 256)])
