@@ -18,7 +18,11 @@ other route uploads float32, and ``timings["wire"]`` says which format ran.
 (``data/synth.py``) and feeds them to the same per-chunk extractor, so no
 raw IQ crosses the host boundary; only the features come back.
 ``run_extraction(profile_dir=...)`` records the extraction with
-``torch.profiler`` and writes a Chrome trace.
+``torch.profiler`` (every thread, the loader's too) and writes a Chrome
+trace. Its spans (``utils/metrics.py``): ``amc.extract.pass`` (the call),
+``amc.extract.load_wait`` (waiting on the loader), the loader's
+``amc.io.load_modulation`` and ``amc.extract.prepare``, ``amc.extract``
+(the stage on the device) and ``amc.io.save_features``.
 
 With a process group up, :func:`run_extraction` takes the JAX package's
 multi-device routes (``extraction.py:570-583``, ``:666-710``):
@@ -58,7 +62,7 @@ from amcpy_tpu_torch.ops.wire import decode_planes, encode_planes, resolve_wire_
 from amcpy_tpu_torch.parallel.audit import all_gather, all_reduce, barrier, broadcast
 from amcpy_tpu_torch.parallel.mesh import group_up, is_primary, make_mesh, pad_to_multiple
 from amcpy_tpu_torch.utils.device import resolve_device
-from amcpy_tpu_torch.utils.metrics import MetricsLogger, stage_timer
+from amcpy_tpu_torch.utils.metrics import MetricsLogger, span, stage_timer
 
 __all__ = [
     "extract_batch",
@@ -241,9 +245,15 @@ def extract_batch(
 
     ``timings`` — optional dict, filled with the phase split of the host
     path: ``host_prep_s`` (time BLOCKED on prep), ``prep_total_s`` (all
-    prep, overlapped or not), ``h2d_s`` (enqueueing the copies and
-    kernels), ``wait_s`` (waiting for the device at the end: compute plus
-    any copy backlog), ``bytes_h2d`` and ``wire``.
+    prep, overlapped or not), ``h2d_s`` (the copies: on a card the device
+    seconds between a pair of timing events around each chunk's copies,
+    read once the features are fetched, so no synchronization is added;
+    an upper bound on the copy time, as it also holds the copy engine's
+    start and any idle of the stream between the events, where a profiler
+    trace's memcpy records give the copies alone; on the CPU the host
+    seconds of the copy calls), ``wait_s`` (the host blocked on the final
+    fetch: compute plus any copy backlog), ``bytes_h2d`` and ``wire``.
+    The timing events are made only when ``timings`` is given.
     """
     dev = resolve_device(device)
     t_prep = prep_total = 0.0
@@ -297,18 +307,30 @@ def extract_batch(
         )
     out_dev = torch.empty((b, NUM_FEATURES), dtype=torch.float32, device=dev)
     t_h2d = 0.0
+    # timing events around each chunk's copies, on a card and when asked
+    events = timings is not None and dev.type == "cuda"
+    copies: list[tuple[torch.cuda.Event, torch.cuda.Event]] = []
     bytes_h2d = 0
     try:
         for start, payload in chunk_stream():
+            if events:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
             t1 = time.perf_counter()
             arrs = [t.to(dev, non_blocking=True) for t in payload]
+            t_h2d += time.perf_counter() - t1
+            if events:
+                ev[1].record()
+                copies.append(ev)
             bytes_h2d += sum(t.numel() * t.element_size() for t in payload)
             feats = kern(*arrs)
             out_dev[start : start + feats.shape[0]] = feats
-            t_h2d += time.perf_counter() - t1
         t3 = time.perf_counter()
         out = out_dev.cpu().numpy()
         t_wait = time.perf_counter() - t3
+        if copies:
+            t_h2d = sum(e0.elapsed_time(e1) for e0, e1 in copies) / 1e3
     finally:
         if prep_exec is not None:
             prep_exec.shutdown(wait=True)
@@ -363,23 +385,29 @@ def run_extraction(
             results[mod] = loaded
 
     # a loader thread reads and prepares modulation k+1 while k is on the
-    # device
-    def _load_prepared(mod: str):
-        raw = io_mat.load_modulation(cfg, mod)  # (S, F, N)
-        return raw.shape, prepare_frames(
-            raw.reshape(-1, raw.shape[-1]), kernel=cfg.compute.kernel,
-            wire=cfg.compute.wire_format, device=dev,
-        )
+    # device; its spans are the pass's children
+    def _load_prepared(mod: str, parent: int | None):
+        with span("amc.io.load_modulation", parent=parent) as sp:
+            raw = io_mat.load_modulation(cfg, mod)  # (S, F, N)
+            sp.set(bytes=raw.nbytes)
+        frames = raw.reshape(-1, raw.shape[-1])
+        with span("amc.extract.prepare", parent=parent, frames=frames.shape[0],
+                  bytes=raw.nbytes):
+            return raw.shape, prepare_frames(
+                frames, kernel=cfg.compute.kernel, wire=cfg.compute.wire_format,
+                device=dev,
+            )
 
     prof = _profiler(dev) if profile_dir else contextlib.nullcontext()
     loader = cf.ThreadPoolExecutor(1)
     try:
-        fut = loader.submit(_load_prepared, todo[0]) if todo else None
-        with prof:
+        with prof, span("amc.extract.pass") as pas:
+            fut = loader.submit(_load_prepared, todo[0], pas.id) if todo else None
             for k, mod in enumerate(todo):
-                (n_snr, n_frames, _), prepared = fut.result()
+                with span("amc.extract.load_wait", wait=True):
+                    (n_snr, n_frames, _), prepared = fut.result()
                 fut = (
-                    loader.submit(_load_prepared, todo[k + 1])
+                    loader.submit(_load_prepared, todo[k + 1], pas.id)
                     if k + 1 < len(todo) else None
                 )
                 with stage_timer(
@@ -404,8 +432,10 @@ def run_extraction(
                     f"{tim['host_prep_s']:.3f}s, wait {tim['wait_s']:.3f}s]"
                 )
                 feats = feats.reshape(n_snr, n_frames, NUM_FEATURES)
-                io_mat.save_features(cfg, mod, feats)
+                with span("amc.io.save_features", bytes=feats.nbytes):
+                    io_mat.save_features(cfg, mod, feats)
                 results[mod] = feats
+            pas.set(frames=sum(results[m][..., 0].size for m in todo))
     finally:
         loader.shutdown(wait=True)
     if profile_dir:
@@ -504,13 +534,16 @@ def _run_extraction_sp(cfg: Config, mesh, force: bool, logger: MetricsLogger,
 
 
 def _profiler(dev: torch.device):
-    """``torch.profiler`` over host activity and, on a card, the device's."""
+    """``torch.profiler`` over the host activity of every thread (the
+    loader's too) and, on a card, the device's."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    return profile(activities=acts)
+    return profile(activities=acts,
+                   experimental_config=_ExperimentalConfig(profile_all_threads=True))
 
 
 def run_extraction_synthetic(

@@ -74,6 +74,7 @@ from amcpy_tpu_torch.ops.wire import encode_planes, resolve_wire_format
 from amcpy_tpu_torch.parallel.mesh import group_up
 from amcpy_tpu_torch.preprocessing import Standardizer
 from amcpy_tpu_torch.utils.device import no_tf32, resolve_device
+from amcpy_tpu_torch.utils.metrics import span
 
 __all__ = ["AMCPipeline"]
 
@@ -87,7 +88,9 @@ class _Staging:
     recorded after the copy makes the next upload wait until the copy has
     left the buffer before it writes; a lock keeps two threads from writing
     at once. The buffer grows to the next power of two of what an upload
-    needs.
+    needs. Spans: ``amc.stage.wait`` (for the last copy), ``amc.stage.write``
+    (the host's writes into the buffer) and ``amc.stage.enqueue`` (the copy
+    and its event).
     """
 
     ALIGN = 16
@@ -112,31 +115,34 @@ class _Staging:
             total += -(-a.size * dt.itemsize // self.ALIGN) * self.ALIGN
         with self._lock:
             if self._copied is not None:
-                self._copied.synchronize()  # the last copy has left the buffer
+                with span("amc.stage.wait"):
+                    self._copied.synchronize()  # the last copy has left the buffer
             if self.capacity < total:
                 self._buf = torch.empty(
                     1 << max(total - 1, 0).bit_length(), dtype=torch.uint8,
                     pin_memory=True,
                 )
             views = []
-            for (a, dt), off in zip(parts, offsets):
-                tdt = torch.from_numpy(np.empty(0, dt)).dtype
-                view = self._buf[off : off + a.size * dt.itemsize].view(tdt).view(a.shape)
-                src = None
-                if a.flags.writeable and a.flags.c_contiguous:
-                    try:
-                        src = torch.from_numpy(a)
-                    except TypeError:  # a dtype torch does not hold
-                        pass
-                if src is not None:
-                    view.copy_(src)  # torch's copy runs on every host thread
-                else:
-                    np.copyto(view.numpy(), a, casting="same_kind")
-                views.append((off, view))
-            dev = self._buf[:total].to(self.device, non_blocking=True)
-            if self._copied is None:
-                self._copied = torch.cuda.Event()
-            self._copied.record(torch.cuda.current_stream(self.device))
+            with span("amc.stage.write", bytes=total):
+                for (a, dt), off in zip(parts, offsets):
+                    tdt = torch.from_numpy(np.empty(0, dt)).dtype
+                    view = self._buf[off : off + a.size * dt.itemsize].view(tdt).view(a.shape)
+                    src = None
+                    if a.flags.writeable and a.flags.c_contiguous:
+                        try:
+                            src = torch.from_numpy(a)
+                        except TypeError:  # a dtype torch does not hold
+                            pass
+                    if src is not None:
+                        view.copy_(src)  # torch's copy runs on every host thread
+                    else:
+                        np.copyto(view.numpy(), a, casting="same_kind")
+                    views.append((off, view))
+            with span("amc.stage.enqueue", bytes=total):
+                dev = self._buf[:total].to(self.device, non_blocking=True)
+                if self._copied is None:
+                    self._copied = torch.cuda.Event()
+                self._copied.record(torch.cuda.current_stream(self.device))
         return [dev[off : off + v.numel() * v.element_size()].view(v.dtype).view(v.shape)
                 for off, v in views]
 
@@ -283,13 +289,15 @@ class AMCPipeline:
             i, q = frames.real, frames.imag
         else:
             i, q = frames[:, 0, :], frames[:, 1, :]
-        planes = (i, q) if self._wants_planes else (np.stack([i, q], axis=1),)
-        return tuple(
-            torch.from_numpy(np.ascontiguousarray(p, dtype=np.float32)).to(
-                self.device
+        # the CPU's counterpart of the staging write: the planes' float32 arrays
+        with span("amc.stage.write", bytes=frames.shape[0] * frames.shape[-1] * 8):
+            planes = (i, q) if self._wants_planes else (np.stack([i, q], axis=1),)
+            return tuple(
+                torch.from_numpy(np.ascontiguousarray(p, dtype=np.float32)).to(
+                    self.device
+                )
+                for p in planes
             )
-            for p in planes
-        )
 
     def _wire_eligible(self, b: int, n: int) -> bool:
         """Whether a ``(b, n)`` request takes the int24 wire program: the MLP
@@ -331,18 +339,19 @@ class AMCPipeline:
         return torch.cat([p.to(self.device) for p in parts])
 
     def _logits_here(self, frames: np.ndarray) -> torch.Tensor:
-        """Logits of the whole request on this pipeline's device."""
-        if self._wire_eligible(frames.shape[0], frames.shape[-1]):
-            feats = self._extract_wire(*self._to_device_wire(frames))
-        else:
-            arrs = self._to_device(frames)
+        """Logits of the whole request on this pipeline's device; the
+        model's launches (features, standardize and MLP, or K3 and the head)
+        are the span ``amc.model``."""
+        wire = self._wire_eligible(frames.shape[0], frames.shape[-1])
+        arrs = self._to_device_wire(frames) if wire else self._to_device(frames)
+        with span("amc.model", frames=frames.shape[0]):
             if self.is_cnn:
                 if self._folded is not None:
                     return cnn_logits_fused(self.model, *arrs, folded=self._folded)
                 return self.model(*arrs)
-            feats = self._extract(*arrs)
-        x = (feats[:, self._cols] - self._mean) / self._std
-        return self._classify(x)
+            feats = (self._extract_wire if wire else self._extract)(*arrs)
+            x = (feats[:, self._cols] - self._mean) / self._std
+            return self._classify(x)
 
     def _classify(self, x: torch.Tensor) -> torch.Tensor:
         """The MLP on standardized features, in full float32 (no TF32)."""

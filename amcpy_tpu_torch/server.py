@@ -22,6 +22,13 @@ on the card (``device=None``) or on the CPU (``device="cpu"``).
 * **Shutdown.** A request is queued under the lock that :meth:`_Batcher.stop`
   takes to stop the queue, so every queued request is either answered or
   failed, and no caller of :meth:`_Batcher.infer` waits forever.
+* **Spans** (``utils/metrics.py``, recorded while a ``torch.profiler``
+  session records): ``amc.request`` (a call of :meth:`AMCServer.classify`;
+  its id is the request id) and ``amc.queue`` (queued until the batcher
+  takes it), which only wait; ``amc.dispatch`` (one group),
+  ``amc.concat``, ``amc.fetch`` (the logits' copy back, where the batcher
+  waits on the card) and ``amc.reply``, which work, beside the pipeline's
+  ``amc.stage.*`` and ``amc.model``.
 
 Endpoints:
 
@@ -50,6 +57,7 @@ import torch
 
 from amcpy_tpu_torch.config import Config
 from amcpy_tpu_torch.serve import AMCPipeline
+from amcpy_tpu_torch.utils.metrics import Span, record_span, span
 
 __all__ = ["AMCServer", "serve_forever"]
 
@@ -58,13 +66,16 @@ _STOP = object()
 
 
 class _WorkItem:
-    __slots__ = ("frames", "logits", "error", "done")
+    __slots__ = ("frames", "logits", "error", "done", "request", "queued_ns")
 
-    def __init__(self, frames: np.ndarray):
+    def __init__(self, frames: np.ndarray, request: Span | None = None):
         self.frames = frames
         self.logits: np.ndarray | None = None
         self.error: BaseException | None = None
         self.done = threading.Event()
+        #: the ``amc.request`` span of a traced request, else None
+        self.request = request
+        self.queued_ns = 0
 
 
 class _Batcher:
@@ -90,14 +101,17 @@ class _Batcher:
                                         daemon=True)
         self._thread.start()
 
-    def infer(self, frames: np.ndarray) -> np.ndarray:
+    def infer(self, frames: np.ndarray, request: Span | None = None) -> np.ndarray:
         """Submit ``(B, N)`` complex or ``(B, 2, N)`` planar frames; block
         until their logits are ready. Raises ``RuntimeError`` once the
-        batcher is stopping."""
-        item = _WorkItem(frames)
+        batcher is stopping. ``request`` is the caller's ``amc.request``
+        span, when traced: the queue's span is recorded under it."""
+        item = _WorkItem(frames, request or None)
         with self._lock:
             if self._stopped:
                 raise RuntimeError("server shutting down")
+            if item.request is not None:
+                item.queued_ns = time.perf_counter_ns()
             self.q.put(item)
         # stop() fails every item still queued when the loop is done, so
         # this wait ends
@@ -127,11 +141,20 @@ class _Batcher:
 
     # ------------------------------------------------------------------
 
+    @staticmethod
+    def _taken(item: _WorkItem) -> None:
+        """Record a traced item's wait in the queue, as the batcher takes it."""
+        req = item.request
+        if req is not None:
+            record_span("amc.queue", item.queued_ns, time.perf_counter_ns(),
+                        parent=req.id, request=req.id, frames=item.frames.shape[0])
+
     def _collect(self) -> list[_WorkItem] | None:
         """Block for the first item, then coalesce the backlog."""
         item = self.q.get()
         if item is _STOP:
             return None
+        self._taken(item)
         batch = [item]
         n = item.frames.shape[0]
         stop_seen = False
@@ -143,6 +166,7 @@ class _Batcher:
             if nxt is _STOP:
                 stop_seen = True
                 break
+            self._taken(nxt)
             batch.append(nxt)
             n += nxt.frames.shape[0]
         if len(batch) > 1 and not stop_seen and self.window_s > 0:
@@ -159,6 +183,7 @@ class _Batcher:
                 if nxt is _STOP:
                     stop_seen = True
                     break
+                self._taken(nxt)
                 batch.append(nxt)
                 n += nxt.frames.shape[0]
         if stop_seen:
@@ -176,16 +201,7 @@ class _Batcher:
                 groups.setdefault(key, []).append(b)
             for group in groups.values():
                 try:
-                    if len(group) == 1:
-                        allf = group[0].frames
-                    else:
-                        allf = np.concatenate([b.frames for b in group])
-                    logits = self.pipe.logits(allf).cpu().numpy()
-                    off = 0
-                    for b in group:
-                        k = b.frames.shape[0]
-                        b.logits = logits[off : off + k]
-                        off += k
+                    self._dispatch(group)
                 except BaseException as exc:  # every waiter gets the error
                     for b in group:
                         b.error = exc
@@ -197,6 +213,27 @@ class _Batcher:
                     self.max_coalesced = max(self.max_coalesced, len(group))
                     for b in group:
                         b.done.set()
+
+    def _dispatch(self, group: list[_WorkItem]) -> None:
+        """One concatenate, one pipeline call and one fetch for ``group``;
+        each item gets its rows of the logits."""
+        with span("amc.dispatch") as sp:
+            if sp:
+                sp.set(requests=len(group), frames=sum(b.frames.shape[0] for b in group))
+                sp.request = tuple(b.request.id for b in group if b.request is not None)
+            if len(group) == 1:
+                allf = group[0].frames
+            else:
+                with span("amc.concat", bytes=sum(b.frames.nbytes for b in group)):
+                    allf = np.concatenate([b.frames for b in group])
+            logits = self.pipe.logits(allf)
+            with span("amc.fetch", frames=allf.shape[0]):
+                logits = logits.cpu().numpy()
+            off = 0
+            for b in group:
+                k = b.frames.shape[0]
+                b.logits = logits[off : off + k]
+                off += k
 
 
 class AMCServer:
@@ -255,32 +292,37 @@ class AMCServer:
         """Labels (and probabilities) of the frames in ``body``: complex64
         ``(B, frame_size)`` for ``c64``, float32 ``(B, 2, frame_size)`` for
         ``planar``."""
-        if fmt not in ("c64", "planar"):
-            raise ValueError(f"unknown format {fmt!r} (use c64|planar)")
-        if len(body) % (8 * frame_size):
-            what = ("complex64 frames of" if fmt == "c64"
-                    else "planar f32 (2, N) frames of")
-            raise ValueError(f"body is {len(body)} bytes — not a whole number "
-                             f"of {what} {frame_size} samples")
-        if fmt == "c64":
-            frames = np.frombuffer(body, dtype=np.complex64).reshape(-1, frame_size)
-        else:
-            frames = np.frombuffer(body, dtype=np.float32).reshape(-1, 2, frame_size)
-        if frames.shape[0] == 0:
-            raise ValueError("empty request")
-        logits = self.batcher.infer(frames)
-        pred = logits.argmax(-1)
-        with self._stats_lock:
-            self._requests += 1
-            self._frames += int(frames.shape[0])
-        out: dict[str, Any] = {
-            "labels": [self.mods[int(k)] for k in pred],
-            "class_ids": [int(k) for k in pred],
-        }
-        if want_probs:
-            z = np.exp(logits - logits.max(-1, keepdims=True))
-            out["probs"] = np.round(z / z.sum(-1, keepdims=True), 6).tolist()
-        return out
+        with span("amc.request", wait=True) as req:
+            if fmt not in ("c64", "planar"):
+                raise ValueError(f"unknown format {fmt!r} (use c64|planar)")
+            if len(body) % (8 * frame_size):
+                what = ("complex64 frames of" if fmt == "c64"
+                        else "planar f32 (2, N) frames of")
+                raise ValueError(f"body is {len(body)} bytes — not a whole number "
+                                 f"of {what} {frame_size} samples")
+            if fmt == "c64":
+                frames = np.frombuffer(body, dtype=np.complex64).reshape(-1, frame_size)
+            else:
+                frames = np.frombuffer(body, dtype=np.float32).reshape(-1, 2, frame_size)
+            if frames.shape[0] == 0:
+                raise ValueError("empty request")
+            if req:
+                req.request = req.id
+                req.set(frames=frames.shape[0], bytes=len(body))
+            logits = self.batcher.infer(frames, req)
+            with self._stats_lock:
+                self._requests += 1
+                self._frames += int(frames.shape[0])
+            with span("amc.reply", request=req.id, frames=frames.shape[0]):
+                pred = logits.argmax(-1)
+                out: dict[str, Any] = {
+                    "labels": [self.mods[int(k)] for k in pred],
+                    "class_ids": [int(k) for k in pred],
+                }
+                if want_probs:
+                    z = np.exp(logits - logits.max(-1, keepdims=True))
+                    out["probs"] = np.round(z / z.sum(-1, keepdims=True), 6).tolist()
+            return out
 
     def _reserve(self, nbytes: int) -> bool:
         with self._resident_lock:

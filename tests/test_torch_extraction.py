@@ -200,7 +200,7 @@ def test_io_mat_matches_jax(tmp_path):
 
 
 def test_stage_timer_logs_and_trace_region_records(tmp_path):
-    from amcpy_tpu_torch.utils.metrics import MetricsLogger, stage_timer, trace_region
+    from amcpy_tpu_torch.utils.metrics import MetricsLogger, clear_spans, span, spans, stage_timer
 
     log = MetricsLogger(tmp_path / "m" / "run.jsonl")
     with stage_timer(log, "extract", device=torch.device("cpu"), modulation="BPSK") as rec:
@@ -210,7 +210,11 @@ def test_stage_timer_logs_and_trace_region_records(tmp_path):
     assert got["event"] == "extract" and got["frames"] == 8 and got["wall_s"] >= 0
     assert MetricsLogger(None).log("x", a=1)["a"] == 1  # no sink: nothing written
 
+    clear_spans()
     with torch.profiler.profile() as prof:
-        with trace_region("amc_region"):
+        with span("amc_region", frames=4):
             torch.ones(4).sum()
     assert "amc_region" in {e.key for e in prof.key_averages()}
+    (rec,) = spans()
+    assert rec.name == "amc_region" and rec.counts == {"frames": 4} and rec.t1_ns > rec.t0_ns
+    clear_spans()
