@@ -23,6 +23,16 @@ needed (they return with CUDA-graph capture). The MLP runs in full float32,
 as the JAX MLP does: TF32 is held off for the MLP's call only and restored
 after it.
 
+A request may also be a list of arrays of one dtype and per-frame shape,
+such as the server's coalesced group: their rows, in order, are one batch.
+On the card's float32 route the pieces are written back to back into the
+staging buffer, with no joined array on the host. The routes that need
+one array concatenate the list first, under the span ``amc.concat``: the
+CPU, the int24 wire program (it encodes planes on the host) and a request
+that fans out over several cards. :attr:`AMCPipeline.coalesced_in_place`
+and :attr:`AMCPipeline.coalesced_concatenated` count the lists of more
+than one array that took each way.
+
 ``wire_format: int24`` is the JAX package's wire program: an MLP request of
 at least :attr:`AMCPipeline.WIRE_MIN_BATCH` frames on the fused route with
 a factorizable N is encoded on the host (``ops/wire.py``), crosses as
@@ -53,6 +63,7 @@ Scale-out across hosts stays one server process a host.
 from __future__ import annotations
 
 import copy
+import math
 import threading
 from pathlib import Path
 
@@ -84,13 +95,15 @@ class _Staging:
 
     :meth:`upload` writes host arrays into it (each cast to its wire dtype,
     at 16-byte-aligned offsets), sends the used bytes with one
-    ``non_blocking`` copy and returns device views of them. An event
-    recorded after the copy makes the next upload wait until the copy has
-    left the buffer before it writes; a lock keeps two threads from writing
-    at once. The buffer grows to the next power of two of what an upload
-    needs. Spans: ``amc.stage.wait`` (for the last copy), ``amc.stage.write``
-    (the host's writes into the buffer) and ``amc.stage.enqueue`` (the copy
-    and its event).
+    ``non_blocking`` copy and returns device views of them. A part may be a
+    list of arrays of one per-frame shape, written back to back (no padding
+    between them) into one view of their rows. An event recorded after the
+    copy makes the next upload wait until the copy has left the buffer
+    before it writes; a lock keeps two threads from writing at once. The
+    buffer grows to the next power of two of what an upload needs. Spans:
+    ``amc.stage.wait`` (for the last copy), ``amc.stage.write`` (the host's
+    writes into the buffer: ``bytes``, and ``pieces``, the arrays written)
+    and ``amc.stage.enqueue`` (the copy and its event).
     """
 
     ALIGN = 16
@@ -105,14 +118,19 @@ class _Staging:
     def capacity(self) -> int:
         return 0 if self._buf is None else self._buf.numel()
 
-    def upload(self, parts: list[tuple[np.ndarray, np.dtype]]) -> list[torch.Tensor]:
+    def upload(self, parts: list[tuple["np.ndarray | list[np.ndarray]", np.dtype]]
+               ) -> list[torch.Tensor]:
         """Each ``(array, dtype)`` as a tensor on the card of that dtype and
-        the array's shape; one host-to-device copy for all of them."""
-        parts = [(np.asarray(a), np.dtype(dt)) for a, dt in parts]
-        offsets, total = [], 0
-        for a, dt in parts:
+        the array's shape, or, for a list of arrays, of their rows stacked
+        in order; one host-to-device copy for all of them."""
+        parts = [([np.asarray(p) for p in a] if isinstance(a, list) else [np.asarray(a)],
+                  np.dtype(dt)) for a, dt in parts]
+        shapes, offsets, total = [], [], 0
+        for pieces, dt in parts:
+            shape = (sum(len(p) for p in pieces), *pieces[0].shape[1:])
+            shapes.append(shape)
             offsets.append(total)
-            total += -(-a.size * dt.itemsize // self.ALIGN) * self.ALIGN
+            total += -(-math.prod(shape) * dt.itemsize // self.ALIGN) * self.ALIGN
         with self._lock:
             if self._copied is not None:
                 with span("amc.stage.wait"):
@@ -123,20 +141,16 @@ class _Staging:
                     pin_memory=True,
                 )
             views = []
-            with span("amc.stage.write", bytes=total):
-                for (a, dt), off in zip(parts, offsets):
+            with span("amc.stage.write", bytes=total,
+                      pieces=sum(len(pieces) for pieces, _ in parts)):
+                for (pieces, dt), shape, off in zip(parts, shapes, offsets):
                     tdt = torch.from_numpy(np.empty(0, dt)).dtype
-                    view = self._buf[off : off + a.size * dt.itemsize].view(tdt).view(a.shape)
-                    src = None
-                    if a.flags.writeable and a.flags.c_contiguous:
-                        try:
-                            src = torch.from_numpy(a)
-                        except TypeError:  # a dtype torch does not hold
-                            pass
-                    if src is not None:
-                        view.copy_(src)  # torch's copy runs on every host thread
-                    else:
-                        np.copyto(view.numpy(), a, casting="same_kind")
+                    view = self._buf[off : off + math.prod(shape) * dt.itemsize]
+                    view = view.view(tdt).view(shape)
+                    row = 0
+                    for a in pieces:
+                        _write(view[row : row + len(a)], a)
+                        row += len(a)
                     views.append((off, view))
             with span("amc.stage.enqueue", bytes=total):
                 dev = self._buf[:total].to(self.device, non_blocking=True)
@@ -147,18 +161,38 @@ class _Staging:
                 for off, v in views]
 
 
-def _check_frames(frames) -> np.ndarray:
-    """``frames`` as an array of ``(B, N)`` complex or ``(B, 2, N)`` planar
-    frames, else ``ValueError``."""
-    frames = np.asarray(frames)
-    if np.iscomplexobj(frames):
-        if frames.ndim != 2:
-            raise ValueError(f"expected (B, N) complex frames, got {frames.shape}")
-    elif frames.ndim != 3 or frames.shape[1] != 2:
-        raise ValueError(
-            f"expected (B, N) complex or (B, 2, N) planar, got {frames.shape}"
-        )
-    return frames
+def _write(view: torch.Tensor, a: np.ndarray) -> None:
+    """Write host array ``a`` into ``view``, a pinned tensor of its shape,
+    cast to the view's dtype."""
+    src = None
+    if a.flags.writeable and a.flags.c_contiguous:
+        try:
+            src = torch.from_numpy(a)
+        except TypeError:  # a dtype torch does not hold
+            pass
+    if src is not None:
+        view.copy_(src)  # torch's copy runs on every host thread
+    else:
+        np.copyto(view.numpy(), a, casting="same_kind")
+
+
+def _check_frames(frames) -> list[np.ndarray]:
+    """The arrays of a request, else ``ValueError``: ``frames`` is one
+    array of ``(B, N)`` complex or ``(B, 2, N)`` planar frames, or a list of
+    such arrays of one dtype and per-frame shape."""
+    pieces = [np.asarray(p) for p in frames] if isinstance(frames, list) else [np.asarray(frames)]
+    if not pieces:
+        raise ValueError("expected at least one array of frames")
+    for p in pieces:
+        if np.iscomplexobj(p):
+            if p.ndim != 2:
+                raise ValueError(f"expected (B, N) complex frames, got {p.shape}")
+        elif p.ndim != 3 or p.shape[1] != 2:
+            raise ValueError(f"expected (B, N) complex or (B, 2, N) planar, got {p.shape}")
+    if any((p.dtype, p.shape[1:]) != (pieces[0].dtype, pieces[0].shape[1:]) for p in pieces):
+        raise ValueError("the arrays of a request differ in dtype or frame shape: "
+                         f"{[(p.dtype.str, p.shape) for p in pieces]}")
+    return pieces
 
 
 class AMCPipeline:
@@ -200,6 +234,11 @@ class AMCPipeline:
         #: the wire codec of large MLP requests: serving runs int24 only
         self._wire = "int24" if resolve_wire_format(cfg.compute.wire_format) == "int24" else "f32"
         self._staging = _Staging(self.device) if self.device.type == "cuda" else None
+        #: requests of more than one array written into the staging buffer
+        #: in pieces, and those concatenated on the host first
+        self.coalesced_in_place = 0
+        self.coalesced_concatenated = 0
+        self._count_lock = threading.Lock()
         if isinstance(model, IQConvNet):
             #: folded trunk and head weights when requests run K3, else None
             self._folded = (
@@ -267,16 +306,20 @@ class AMCPipeline:
 
     # ------------------------------------------------------------------
 
-    def _to_device(self, frames: np.ndarray) -> tuple[torch.Tensor, ...]:
-        """Host ``(B, N)`` complex or ``(B, 2, N)`` planar -> the first
-        stage's input on the device: two contiguous ``(B, N)`` planes for the
-        fused routes (K1, K3), one packed ``(B, 2, N)`` tensor for the
-        others. On the card the array crosses as it is, through the staging
-        buffer, and is split there."""
-        frames = _check_frames(frames)
-        cplx = np.iscomplexobj(frames)
+    def _to_device(self, frames: "np.ndarray | list[np.ndarray]") -> tuple[torch.Tensor, ...]:
+        """Host ``(B, N)`` complex or ``(B, 2, N)`` planar frames (one array,
+        or a list of them) -> the first stage's input on the device: two
+        contiguous ``(B, N)`` planes for the fused routes (K1, K3), one
+        packed ``(B, 2, N)`` tensor for the others. On the card the arrays
+        cross as they are, through the staging buffer, and are split
+        there; on the CPU a list is concatenated first."""
+        pieces = _check_frames(frames)
+        cplx = np.iscomplexobj(pieces[0])
         if self._staging is not None:
-            (t,) = self._staging.upload([(frames, np.complex64 if cplx else np.float32)])
+            if len(pieces) > 1:
+                with self._count_lock:
+                    self.coalesced_in_place += 1
+            (t,) = self._staging.upload([(pieces, np.complex64 if cplx else np.float32)])
             if cplx:
                 x = torch.view_as_real(t)  # (B, N, 2)
                 planes, packed = (x[..., 0], x[..., 1]), x.transpose(1, 2)
@@ -285,6 +328,7 @@ class AMCPipeline:
             if self._wants_planes:
                 return tuple(p.contiguous() for p in planes)
             return (packed.contiguous(),)
+        frames = self._joined(pieces)
         if cplx:
             i, q = frames.real, frames.imag
         else:
@@ -298,6 +342,16 @@ class AMCPipeline:
                 )
                 for p in planes
             )
+
+    def _joined(self, pieces: list[np.ndarray]) -> np.ndarray:
+        """A request's arrays as one array: more than one are concatenated
+        (span ``amc.concat``) and counted."""
+        if len(pieces) == 1:
+            return pieces[0]
+        with self._count_lock:
+            self.coalesced_concatenated += 1
+        with span("amc.concat", bytes=sum(p.nbytes for p in pieces)):
+            return np.concatenate(pieces)
 
     def _wire_eligible(self, b: int, n: int) -> bool:
         """Whether a ``(b, n)`` request takes the int24 wire program: the MLP
@@ -327,24 +381,28 @@ class AMCPipeline:
         return isinstance(self.model, IQConvNet)
 
     @torch.inference_mode()
-    def logits(self, frames: np.ndarray) -> torch.Tensor:
+    def logits(self, frames: "np.ndarray | list[np.ndarray]") -> torch.Tensor:
         """Logits ``(B, n_classes)`` on the pipeline's device, the request
-        fanned out over ``devices`` where :meth:`fanout` says so."""
-        frames = _check_frames(frames)
-        plan = self.fanout(frames.shape[0])
+        fanned out over ``devices`` where :meth:`fanout` says so. A list of
+        arrays of one dtype and per-frame shape is one request of their
+        rows in order."""
+        pieces = _check_frames(frames)
+        plan = self.fanout(sum(len(p) for p in pieces))
         if plan is None:
-            return self._logits_here(frames)
+            return self._logits_here(pieces)
+        frames = self._joined(pieces)
         # every chunk is queued on its device before any is gathered
-        parts = [self._consts_on(d)._logits_here(frames[lo:hi]) for d, lo, hi in plan]
+        parts = [self._consts_on(d)._logits_here([frames[lo:hi]]) for d, lo, hi in plan]
         return torch.cat([p.to(self.device) for p in parts])
 
-    def _logits_here(self, frames: np.ndarray) -> torch.Tensor:
-        """Logits of the whole request on this pipeline's device; the
-        model's launches (features, standardize and MLP, or K3 and the head)
-        are the span ``amc.model``."""
-        wire = self._wire_eligible(frames.shape[0], frames.shape[-1])
-        arrs = self._to_device_wire(frames) if wire else self._to_device(frames)
-        with span("amc.model", frames=frames.shape[0]):
+    def _logits_here(self, pieces: list[np.ndarray]) -> torch.Tensor:
+        """Logits of a request's checked arrays on this pipeline's device;
+        the model's launches (features, standardize and MLP, or K3 and the
+        head) are the span ``amc.model``."""
+        rows = sum(len(p) for p in pieces)
+        wire = self._wire_eligible(rows, pieces[0].shape[-1])
+        arrs = self._to_device_wire(self._joined(pieces)) if wire else self._to_device(pieces)
+        with span("amc.model", frames=rows):
             if self.is_cnn:
                 if self._folded is not None:
                     return cnn_logits_fused(self.model, *arrs, folded=self._folded)

@@ -11,7 +11,10 @@ on the card (``device=None``) or on the CPU (``device="cpu"``).
   does it wait a bounded window (2 ms) for stragglers: a lone client is
   dispatched at once. Requests are grouped by dtype and per-frame shape,
   so a complex request and a planar one, or two frame sizes, never share
-  a concatenate.
+  a dispatch. A group crosses as its pieces: the requests' arrays, in
+  order, go to the pipeline unjoined, and on the card each is written
+  straight into the staging buffer (the pipeline concatenates them only
+  on the routes that need one array).
 * **Bodies cross as they arrive.** A ``format=c64`` body is handed to the
   pipeline as a complex64 ``(B, N)`` array and a ``format=planar`` body as
   float32 ``(B, 2, N)``; the pipeline copies either once to the card and
@@ -25,15 +28,16 @@ on the card (``device=None``) or on the CPU (``device="cpu"``).
 * **Spans** (``utils/metrics.py``, recorded while a ``torch.profiler``
   session records): ``amc.request`` (a call of :meth:`AMCServer.classify`;
   its id is the request id) and ``amc.queue`` (queued until the batcher
-  takes it), which only wait; ``amc.dispatch`` (one group),
-  ``amc.concat``, ``amc.fetch`` (the logits' copy back, where the batcher
-  waits on the card) and ``amc.reply``, which work, beside the pipeline's
-  ``amc.stage.*`` and ``amc.model``.
+  takes it), which only wait; ``amc.dispatch`` (one group), ``amc.fetch``
+  (the logits' copy back, where the batcher waits on the card) and
+  ``amc.reply``, which work, beside the pipeline's ``amc.concat`` (its
+  routes that join a group), ``amc.stage.*`` and ``amc.model``.
 
 Endpoints:
 
 * ``GET  /healthz`` — the device, the model's frame size and classes, and
-  the batcher's counters;
+  the batcher's counters, with the pipeline's count of coalesced groups
+  written into the staging buffer in pieces and of those concatenated;
 * ``POST /classify?format=c64|planar&probs=1`` — labels and class ids (and
   probabilities).
 
@@ -81,7 +85,7 @@ class _WorkItem:
 class _Batcher:
     """The one thread that runs the pipeline, with request coalescing.
 
-    Items already queued are concatenated into one dispatch; once at least
+    Items already queued are coalesced into one dispatch; once at least
     one was coalesced, the batcher waits up to ``window_s`` for stragglers.
     """
 
@@ -215,19 +219,18 @@ class _Batcher:
                         b.done.set()
 
     def _dispatch(self, group: list[_WorkItem]) -> None:
-        """One concatenate, one pipeline call and one fetch for ``group``;
-        each item gets its rows of the logits."""
+        """One pipeline call and one fetch for ``group``: the items' arrays
+        go to the pipeline as they are, in order (a lone item's array
+        alone), with no concatenate here; each item gets its rows of the
+        logits."""
+        rows = sum(b.frames.shape[0] for b in group)
         with span("amc.dispatch") as sp:
             if sp:
-                sp.set(requests=len(group), frames=sum(b.frames.shape[0] for b in group))
+                sp.set(requests=len(group), frames=rows)
                 sp.request = tuple(b.request.id for b in group if b.request is not None)
-            if len(group) == 1:
-                allf = group[0].frames
-            else:
-                with span("amc.concat", bytes=sum(b.frames.nbytes for b in group)):
-                    allf = np.concatenate([b.frames for b in group])
-            logits = self.pipe.logits(allf)
-            with span("amc.fetch", frames=allf.shape[0]):
+            frames = group[0].frames if len(group) == 1 else [b.frames for b in group]
+            logits = self.pipe.logits(frames)
+            with span("amc.fetch", frames=rows):
                 logits = logits.cpu().numpy()
             off = 0
             for b in group:
@@ -352,6 +355,8 @@ class AMCServer:
                 "coalesced_requests": b.coalesced_requests,
                 "max_coalesced": b.max_coalesced,
                 "window_ms": b.window_s * 1e3,
+                "coalesced_in_place": self.pipe.coalesced_in_place,
+                "coalesced_concatenated": self.pipe.coalesced_concatenated,
             },
         }
 

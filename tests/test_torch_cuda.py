@@ -919,6 +919,80 @@ def test_staging_buffer_reuse_is_safe_across_two_requests_in_flight(cuda):
     torch.testing.assert_close(got[1].cpu(), torch.from_numpy(a[:7]), rtol=0, atol=0)
 
 
+def _bits(a) -> np.ndarray:
+    """The bytes of a host array or of a tensor's copy on the host."""
+    a = a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+    return np.ascontiguousarray(a).view(np.uint8)
+
+
+def test_staging_upload_of_pieces_is_the_upload_of_their_concatenate(cuda):
+    """A part given as a list of arrays arrives as the upload of their
+    concatenate, bit for bit: complex64 ``(B, N)`` pieces, planar float32
+    ``(B, 2, N)`` pieces, one piece of one frame, and a list beside an
+    ordinary part."""
+    from amcpy_tpu_torch.serve import _Staging
+
+    stage = _Staging(cuda)
+    x = _frames(9, 256, seed=15)
+    cplx = [x[:4], x[4:5], x[5:]]
+    planar = [F.to_planar(p) for p in cplx]
+    for pieces, dt in ((cplx, np.complex64), (planar, np.float32), (cplx[1:2], np.complex64)):
+        (got,) = stage.upload([(pieces, dt)])
+        (want,) = stage.upload([(np.concatenate(pieces), dt)])
+        assert got.shape == want.shape and got.dtype == want.dtype
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+    extra = np.arange(7, dtype=np.float32)
+    got = stage.upload([(cplx, np.complex64), (extra, np.float32)])
+    assert [tuple(t.shape) for t in got] == [(9, 256), (7,)]
+    np.testing.assert_array_equal(_bits(got[0]), _bits(x))
+    np.testing.assert_array_equal(_bits(got[1]), _bits(extra))
+
+
+def test_staging_of_pieces_waits_for_the_last_copy(cuda):
+    """The buffer's reuse stays safe when a part is written in pieces:
+    with the stream held back by a spin kernel, request A's copy is still
+    queued when request B's pieces are written, and A arrives intact."""
+    from amcpy_tpu_torch.serve import _Staging
+
+    stage = _Staging(cuda)
+    a = np.arange(1 << 20, dtype=np.float32).reshape(1024, 1024)
+    b = -a
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of spinning ahead of A's copy
+    (got_a,) = stage.upload([([a[:500], a[500:501], a[501:]], np.float32)])
+    (got_b,) = stage.upload([([b[:1], b[1:]], np.float32)])
+    np.testing.assert_array_equal(_bits(got_a), _bits(a))
+    np.testing.assert_array_equal(_bits(got_b), _bits(b))
+
+
+def test_a_coalesced_request_gives_the_logits_of_its_concatenate(cuda, tmp_path):
+    """A request of several arrays (the server's coalesced group) is
+    written into the staging buffer in pieces, runs K1 and the MLP, or K3
+    and the head, once, and gives exactly the logits of its concatenate."""
+    from amcpy_tpu_torch.models.cnn import IQConvNet
+    from amcpy_tpu_torch.preprocessing import Standardizer
+    from amcpy_tpu_torch.serve import AMCPipeline
+    from amcpy_tpu_torch.train.checkpoint import save_checkpoint
+
+    mlp = _mlp_pipeline(cuda, tmp_path / "mlp", 256)
+    assert mlp._kernel == "fused"
+    cfg = Config().replace(paths={"root": str(tmp_path / "cnn")}, signals={"frame_size": 512})
+    torch.manual_seed(0)
+    save_checkpoint(cfg, "cnn", IQConvNet(6),
+                    Standardizer(np.zeros(1, np.float32), np.ones(1, np.float32)))
+    cnn = AMCPipeline.from_checkpoint(cfg, "cnn", device=cuda)
+    assert cnn._folded is not None
+    for pipe, n, counter in ((mlp, 256, extract_features_fused), (cnn, 512, cnn_trunk)):
+        x = _frames(40, n, seed=16, spread=1.0)
+        for req in ([x[:17], x[17:18], x[18:]], [F.to_planar(x[:3]), F.to_planar(x[3:])]):
+            want = pipe.logits(np.concatenate(req))
+            launches, in_place = counter.launches, pipe.coalesced_in_place
+            got = pipe.logits(req)
+            assert counter.launches == launches + 1
+            assert pipe.coalesced_in_place == in_place + 1
+            assert torch.equal(got, want)
+        assert pipe.coalesced_concatenated == 0
+
+
 def test_int24_program_launches_k1_once_a_request(cuda, tmp_path):
     """``wire_format: int24``: a request of 512 frames or more is decoded on
     the card and runs K1 once; logits within 1e-3 of the float32 program,

@@ -215,19 +215,31 @@ def test_http_server_shutdown_with_clients_in_flight(server):
     assert answered
 
 
+def _pieces(frames):
+    """A dispatch's arrays: the list a coalesced group crosses as, or the
+    lone request's array."""
+    return frames if isinstance(frames, list) else [frames]
+
+
 class _SlowPipe:
     """A stand-in pipeline whose first dispatch waits for ``release``; its
-    logits repeat each frame's first value, so a caller can tell its rows."""
+    logits repeat each frame's first value, so a caller can tell its rows.
+    ``calls`` holds each dispatch's dtype and shape of all its rows,
+    ``handed`` what the batcher handed over (an array, or a group's list)."""
 
     def __init__(self):
         self.calls = []
+        self.handed = []
         self.release = threading.Event()
 
     def logits(self, frames):
-        self.calls.append((frames.dtype, frames.shape))
+        pieces = _pieces(frames)
+        self.handed.append(frames)
+        self.calls.append((pieces[0].dtype,
+                           (sum(len(p) for p in pieces), *pieces[0].shape[1:])))
         if len(self.calls) == 1:
             self.release.wait(timeout=30)
-        first = frames.reshape(len(frames), -1)[:, :1].real
+        first = np.concatenate([p.reshape(len(p), -1)[:, :1].real for p in pieces])
         return torch.from_numpy(np.repeat(first.astype(np.float32), 6, axis=1))
 
 
@@ -300,9 +312,125 @@ def test_batcher_groups_mixed_frame_shapes(held, other):
         b.stop()
 
 
+def test_batcher_hands_a_group_over_unjoined():
+    """A coalesced group reaches the pipeline as its requests' own arrays,
+    in the order they were queued, with no concatenate; a lone request
+    arrives as its array; each caller gets exactly its own rows."""
+    pipe = _SlowPipe()
+    b = _Batcher(pipe, window_s=0.05)
+    try:
+        frames = [np.full((k + 2, 16), complex(k, -k), np.complex64) for k in range(4)]
+        outs: list = [None] * 4
+
+        def go(k):
+            outs[k] = b.infer(frames[k])
+
+        threads = [threading.Thread(target=go, args=(k,)) for k in range(4)]
+        for t in threads:
+            t.start()
+            time.sleep(0.2)  # the first dispatch is held; the rest queue in order
+        pipe.release.set()
+        for t in threads:
+            t.join(timeout=30)
+            assert not t.is_alive()
+        assert pipe.handed[0] is frames[0]
+        group = pipe.handed[1]
+        assert isinstance(group, list) and len(pipe.handed) == 2
+        assert [id(a) for a in group] == [id(f) for f in frames[1:]]
+        for k in range(4):
+            assert outs[k].shape == (k + 2, 6)
+            np.testing.assert_array_equal(outs[k], float(k))
+        assert b.dispatches == 2 and b.max_coalesced == 3
+    finally:
+        b.stop()
+
+
+def test_pipeline_concatenates_a_list_on_the_cpu(project):
+    """On the CPU a list of arrays is one request of their rows: its
+    logits are exactly those of their concatenate, the join is counted as
+    concatenated (never in place) and traced as ``amc.concat`` with its
+    bytes; a list of one is that array; a list that mixes shapes or dtypes
+    is refused."""
+    from amcpy_tpu_torch.utils.metrics import clear_spans, spans
+
+    cfg, model_id, _, _ = project
+    pipe = AMCPipeline.from_checkpoint(cfg, model_id, device="cpu")
+    pieces = [_frames(k, seed=20 + k) for k in (3, 1, 5)]
+    want = pipe.logits(np.concatenate(pieces))
+    clear_spans()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            got = pipe.logits(pieces)
+        (concat,) = [r for r in spans() if r.name == "amc.concat"]
+        assert concat.counts["bytes"] == sum(p.nbytes for p in pieces)
+    finally:
+        clear_spans()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (pipe.coalesced_concatenated, pipe.coalesced_in_place) == (1, 0)
+    planar = [np.stack([p.real, p.imag], axis=1) for p in pieces]
+    torch.testing.assert_close(pipe.logits(planar), want, rtol=0, atol=0)
+    torch.testing.assert_close(pipe.logits(pieces[:1]), pipe.logits(pieces[0]), rtol=0, atol=0)
+    assert (pipe.coalesced_concatenated, pipe.coalesced_in_place) == (2, 0)
+    for bad in ([pieces[0], planar[1]], [pieces[0], pieces[1].astype(np.complex128)], []):
+        with pytest.raises(ValueError):
+            pipe.logits(bad)
+
+
+def test_pipeline_joins_a_list_for_the_wire_program_and_the_fan_out(project):
+    """The int24 wire program and a request fanned out over devices take
+    one array: a list is concatenated first, and its logits are those of
+    the concatenate."""
+    pipe_w, _, _ = _wire_pipelines(project)
+    pieces = [_frames(k, seed=30 + k) for k in (300, 212)]
+    assert pipe_w._wire_eligible(512, N)
+    torch.testing.assert_close(pipe_w.logits(pieces), pipe_w.logits(np.concatenate(pieces)),
+                               rtol=0, atol=0)
+    assert (pipe_w.coalesced_concatenated, pipe_w.coalesced_in_place) == (1, 0)
+    cfg, model_id, _, _ = project
+    pipe = AMCPipeline.from_checkpoint(cfg, model_id, device="cpu")
+    pipe.devices = [torch.device("cpu"), torch.device("cpu")]
+    assert pipe.fanout(512) is not None
+    torch.testing.assert_close(pipe.logits(pieces), pipe.logits(np.concatenate(pieces)),
+                               rtol=0, atol=0)
+    assert (pipe.coalesced_concatenated, pipe.coalesced_in_place) == (1, 0)
+
+
+def test_healthz_reports_the_coalesced_routes(server):
+    """``/healthz`` counts the pipeline's coalesced groups by route: on the
+    CPU every group of more than one request is concatenated."""
+    srv, base = server()
+    h = _get(f"{base}/healthz")["batcher"]
+    assert h["coalesced_in_place"] == h["coalesced_concatenated"] == 0
+    logits, first = srv.pipe.logits, threading.Event()
+
+    def slow_first(frames):
+        if not first.is_set():
+            first.set()
+            time.sleep(0.2)  # the others queue behind it and are coalesced
+        return logits(frames)
+
+    srv.pipe.logits = slow_first
+    bodies = [_frames(8, seed=40 + k) for k in range(4)]
+
+    def post(k):
+        if k:
+            first.wait(10)
+        return _post(f"{base}/classify", bodies[k].tobytes())
+
+    with cf.ThreadPoolExecutor(4) as ex:
+        outs = list(ex.map(post, range(4)))
+    srv.pipe.logits = logits
+    for f, o in zip(bodies, outs):
+        np.testing.assert_array_equal(o["class_ids"], srv.pipe.predict(f))
+    h = _get(f"{base}/healthz")["batcher"]
+    assert h["max_coalesced"] >= 2
+    assert h["coalesced_concatenated"] >= 1 and h["coalesced_in_place"] == 0
+    assert h["coalesced_concatenated"] == srv.pipe.coalesced_concatenated
+
+
 class _Pipe:
     def logits(self, frames):
-        return torch.zeros((frames.shape[0], 6))
+        return torch.zeros((sum(len(p) for p in _pieces(frames)), 6))
 
 
 def test_batcher_stop_fails_late_items():

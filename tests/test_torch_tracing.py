@@ -8,11 +8,13 @@ spans nest under their parents across threads, and the Chrome trace holds
 the spans of work and none of the waiting ones. The recorder's cap, and
 the profiler flag that is the one switch, are pinned here too.
 
-The staging buffer's ``amc.stage.wait`` and ``amc.stage.enqueue``, and the
-copies' device seconds of ``extract_batch(timings=)['h2d_s']``, exist only
-on a card (``cuda`` marker; skips without one).
+The staging buffer's ``amc.stage.wait`` and ``amc.stage.enqueue``, a
+coalesced dispatch written into it in pieces with no ``amc.concat``, and
+the copies' device seconds of ``extract_batch(timings=)['h2d_s']``, exist
+only on a card (``cuda`` marker; skips without one).
 """
 
+import contextlib
 import json
 import threading
 import time
@@ -72,21 +74,28 @@ def empty_recorder():
     clear_spans()
 
 
-@pytest.fixture
-def server(tmp_path):
-    """A running CPU server of a seeded MLP checkpoint at N = 256."""
+@contextlib.contextmanager
+def _running_server(tmp_path, device):
+    """A running server of a seeded MLP checkpoint at N = 256 on ``device``."""
     cfg = Config().replace(paths={"root": str(tmp_path / "root")}, signals={"frame_size": N})
     torch.manual_seed(0)
     feats = extract_batch(_frames(32, seed=1), device="cpu")
     scaler = Standardizer.fit(feats[:, list(cfg.features.used_columns)])
     save_checkpoint(cfg, "srv", AMCClassifier(6), scaler)
-    srv = AMCServer(cfg, "srv", host="127.0.0.1", port=0, device="cpu")
+    srv = AMCServer(cfg, "srv", host="127.0.0.1", port=0, device=device)
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
     yield srv
     srv.shutdown()
     th.join(10)
     assert not th.is_alive()
+
+
+@pytest.fixture
+def server(tmp_path):
+    """A running CPU server of a seeded MLP checkpoint at N = 256."""
+    with _running_server(tmp_path, "cpu") as srv:
+        yield srv
 
 
 def _clients(srv, sizes: list[int]) -> list[dict]:
@@ -381,6 +390,26 @@ def test_staging_spans_on_the_card(cuda):
     assert names == ["amc.stage.wait", "amc.stage.write", "amc.stage.enqueue"]
     assert all(r.counts.get("bytes", a.nbytes) == a.nbytes for r in spans())
     np.testing.assert_array_equal(t.cpu().numpy(), a)
+
+
+@pytest.mark.cuda
+def test_a_coalesced_dispatch_on_the_card_writes_its_pieces(cuda, tmp_path):
+    """On the card a coalesced dispatch opens no ``amc.concat``: its
+    ``amc.stage.write`` writes every request's array (``pieces``) and the
+    group's bytes, and the pipeline counts it as written in place."""
+    with _running_server(tmp_path, cuda) as srv:
+        with _profile(all_threads=True):
+            _clients(srv, [4, 8, 12, 16])
+        recs = spans()
+        dispatches = [r for r in recs if r.name == "amc.dispatch"]
+        coalesced = sum(d.counts["requests"] > 1 for d in dispatches)
+        assert coalesced >= 1
+        assert (srv.pipe.coalesced_in_place, srv.pipe.coalesced_concatenated) == (coalesced, 0)
+    assert not [r for r in recs if r.name == "amc.concat"]
+    for disp in dispatches:
+        (write,) = [r for r in recs if r.parent == disp.id and r.name == "amc.stage.write"]
+        assert write.counts["pieces"] == disp.counts["requests"]
+        assert write.counts["bytes"] == disp.counts["frames"] * N * 8
 
 
 @pytest.mark.cuda
