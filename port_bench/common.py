@@ -1,20 +1,28 @@
 """What the drivers share: the program's configuration and models built from
-a configuration file of the benchmark, a metrics logger that keeps its
-records, a pause gate for closed-loop clients, and small statistics."""
+a configuration file of the benchmark, the model family a configuration
+names, a metrics logger that keeps its records, a pause gate for
+closed-loop clients, and small statistics."""
 
 from __future__ import annotations
 
+import importlib.util
 import threading
+from pathlib import Path
+from types import ModuleType
 
 import numpy as np
 import torch
 
-__all__ = ["Gate", "KeepLogger", "port_config", "port_model", "quantiles"]
+__all__ = ["Gate", "KeepLogger", "family", "holding", "port_config", "port_model", "quantiles"]
+
+#: the folder of the family files
+FAMILIES = Path(__file__).resolve().parent / "families"
 
 
 def port_config(cfg: dict, root, **signals):
     """The program's ``Config`` for the benchmark's configuration ``cfg``,
-    its files under ``root``; ``signals`` override signal fields."""
+    its files under ``root``; ``signals`` override signal fields. Without
+    ``features`` or ``training`` the program's defaults hold."""
     from amcpy_tpu_torch.config import Config
 
     s = cfg["signals"]
@@ -26,27 +34,40 @@ def port_config(cfg: dict, root, **signals):
                     "labels": list(range(len(s["modulations"]))),
                     "snr_db": s["snr_db"], "frame_size": s["frame_size"],
                     "num_frames": s["num_frames"], **signals},
-        "features": {"used": cfg["features"]["used"]},
+        **({"features": {"used": cfg["features"]["used"]}} if "features" in cfg else {}),
         "training": cfg.get("training", {}),
         "compute": cfg["compute"],
     })
 
 
-def port_model(cfg: dict, params: dict[str, torch.Tensor]):
-    """The program's module of ``cfg``'s family holding ``params``."""
-    n_classes = len(cfg["signals"]["modulations"])
-    if cfg["family"] == "mlp":
-        from amcpy_tpu_torch.models.classifier import AMCClassifier
+def family(cfg: dict) -> ModuleType:
+    """The module of the model family ``cfg["family"]`` names,
+    ``families/<family>.py``. It offers
 
-        t = cfg["training"]
-        model = AMCClassifier(n_classes, tuple(t["hidden_sizes"]), t["dropout"],
-                              t["activation"], len(cfg["features"]["used"]))
-    else:
-        from amcpy_tpu_torch.models.cnn import IQConvNet
+    * ``params(cfg, seed, device)``: the seeded weights, by the names the
+      program's module loads;
+    * ``scaler(cfg, pool, params, device)``: the program's ``Standardizer``
+      for the checkpoint, and the state the reference needs beside the
+      weights (or None);
+    * ``program_model(cfg, params)``: the program's module holding
+      ``params``;
+    * ``reference_logits(cfg, params, state, frames, device, control)``:
+      the reference's float32 logits of host frames, or with ``control``
+      the control's, one precision below the configuration's;
+    * ``frame_work(cfg)``: the model work of serving one frame, by unit of
+      ``work.PEAKS``."""
+    name = cfg["family"]
+    path = FAMILIES / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no family file {path} for family {name!r}")
+    spec = importlib.util.spec_from_file_location(f"port_bench_family_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
-        m = cfg["model"]
-        model = IQConvNet(n_classes, m["channels"], m["kernel_sizes"], m["strides"],
-                          m["dense"], m["dropout"], m["dtype"])
+
+def holding(model: torch.nn.Module, params: dict[str, torch.Tensor]) -> torch.nn.Module:
+    """``model`` with every leaf of its state set from ``params``."""
     state = model.state_dict()
     for name in state:
         if name.endswith("num_batches_tracked"):
@@ -54,6 +75,11 @@ def port_model(cfg: dict, params: dict[str, torch.Tensor]):
         state[name] = params[name].detach().cpu()
     model.load_state_dict(state)
     return model
+
+
+def port_model(cfg: dict, params: dict[str, torch.Tensor]):
+    """The program's module of ``cfg``'s family holding ``params``."""
+    return family(cfg).program_model(cfg, params)
 
 
 class KeepLogger:

@@ -2,11 +2,13 @@
 ``AMCServer.classify`` with raw complex64 bodies, as the HTTP handler
 does once it has read a body.
 
-Set-up makes a pool of distinct seeded frames on the host, the model's
-weights on the device from the seed (and, for the MLP, a scaler fitted to
-the reference's features of the pool's first frames), writes them as the
-program's checkpoint and starts an ``AMCServer`` from it (its HTTP loop
-runs on a thread of its own and gets no request). It warms the pipeline at the largest dispatch the
+Set-up makes a pool of distinct seeded frames on the host (of the
+configuration's ``signals.pool_modulations``, by default its
+``modulations``) and, through the configuration's family
+(``families/<family>.py``), the model's weights on the device from the
+seed and its scaler. It writes them as the program's checkpoint and starts
+an ``AMCServer`` from it (its HTTP loop runs on a thread of its own and
+gets no request). It warms the pipeline at the largest dispatch the
 clients can make and runs every client for a few requests.
 
 In the window each client sends requests one after another. A request
@@ -15,6 +17,14 @@ fixed grid from ``k_min`` to ``k_max`` that every seed sends alike, each
 client in an order of its own drawn from the seed. The body is a writable
 view of the pool's bytes, as a body read from a socket into a
 ``bytearray`` is.
+
+The end-to-end metric is the card's time each answered frame costs: an
+untraced window runs under a device-only profiler (CUPTI's kernels, copies
+and memsets), from before the clients start until the last of them has
+its answer, and ``serve_card_us_per_frame`` is the union of the device's
+activity over every frame answered in it. The frames answered a second of
+the window, which follow the host's speed, are read in the traced run
+(``frames_per_s.serve``).
 
 ``correct``: every answered frame of every request is held against the
 reference's logits of its frame: the widest gap by which the logit of the
@@ -36,27 +46,20 @@ import numpy as np
 import torch
 
 from port_bench import common, signals
-from port_bench.reference import features as ref_features
-from port_bench.reference import models as ref_models
-from port_bench.trace import span
+from port_bench.trace import Tracer, span
 
 #: the gap a request without its answers reads
 MISSING = 1e9
-#: pool frames whose reference features fit the MLP's scaler
-SCALER_FRAMES = 4096
 #: requests each client sends to warm up
 WARM_REQUESTS = 4
 #: the traced slice: where in the window it starts, and its seconds
 TRACE_AT, TRACE_S = 0.3, 2.0
 #: seconds a client may take to finish its request once the window closes
 JOIN_S = 60.0
-#: frames of the CNN reference at once (its activations are ~1 MB a frame)
-REFERENCE_BLOCK = 256
 
 
 class Driver:
     def __init__(self, ctx):
-        from amcpy_tpu_torch.preprocessing import Standardizer
         from amcpy_tpu_torch.server import AMCServer
         from amcpy_tpu_torch.train.checkpoint import save_checkpoint
 
@@ -65,25 +68,15 @@ class Driver:
         s = cfg["signals"]
         self.n = s["frame_size"]
         self.pool, _ = signals.make_pool(ctx.seed, t["pool_frames"], self.n,
-                                         s["modulations"], s["snr_db"])
+                                         s.get("pool_modulations", s["modulations"]),
+                                         s["snr_db"])
         self.bytes = memoryview(self.pool).cast("B")
         dev = ctx.device
-        self.family = cfg["family"]
-        if self.family == "mlp":
-            self.params = ref_models.mlp_params(cfg, ctx.seed, dev)
-            cols = [f - 1 for f in cfg["features"]["used"]]
-            feats = ref_features.features_of_frames(self.pool[:SCALER_FRAMES], dev)
-            x = feats[:, cols].double()
-            mean, std = x.mean(0), x.std(0, unbiased=False)
-            self.scaler = (mean.float(), std.float())
-            scaler = Standardizer(mean.cpu().numpy().astype(np.float32),
-                                  std.cpu().numpy().astype(np.float32))
-        else:
-            self.params = ref_models.cnn_params(cfg, ctx.seed, dev)
-            used = len(cfg["features"]["used"])
-            scaler = Standardizer(np.zeros(used, np.float32), np.ones(used, np.float32))
+        self.family = common.family(cfg)
+        self.params = self.family.params(cfg, ctx.seed, dev)
+        scaler, self.state = self.family.scaler(cfg, self.pool, self.params, dev)
         pcfg = common.port_config(cfg, ctx.workdir / "root")
-        save_checkpoint(pcfg, "bench", common.port_model(cfg, self.params), scaler)
+        save_checkpoint(pcfg, "bench", self.family.program_model(cfg, self.params), scaler)
         self.srv = AMCServer(pcfg, "bench", port=0, device=dev)
         self._http = threading.Thread(target=self.srv.serve_forever, name="http", daemon=True)
         self._http.start()
@@ -170,7 +163,13 @@ class Driver:
         return start, end
 
     def window(self, seconds: float, tracer=None) -> None:
+        clock = None
+        if tracer is None and self.ctx.device.type == "cuda":
+            clock = Tracer(self.ctx.workdir, host=False)
+            clock.start()
         start, end = self._run(seconds=seconds, tracer=tracer)
+        if clock is not None:  # every request of the window has been answered
+            clock.stop()
         wall = end - start
         recs = [r for rec in self.records for r in rec]
         self.attempted = len(recs)
@@ -179,10 +178,16 @@ class Driver:
         lat = [(r[1] - r[0]) * 1e3 if r[4] is not None else MISSING for r in recs]
         answered = sum(r[3] for r in recs if r[4] is not None and r[1] <= end)
         q = common.quantiles(lat)
-        self.e2e = {"serve_frames_per_s": answered / wall}
-        if tracer is not None:  # the tail outside the traced (profiled) slice
+        if tracer is not None:  # the rate, and the tail outside the traced (profiled) slice
+            tracer.counts["frames_per_s"] = answered / wall
             tracer.counts["request_p95_ms"] = common.quantiles(
                 [v for v, r in zip(lat, recs) if r[5] != 1])["p95"]
+        elif clock is not None:
+            served = sum(r[3] for r in recs if r[4] is not None)
+            busy = clock.summary["busy_s"]
+            self.e2e = {"serve_card_us_per_frame": busy / served * 1e6} if served and busy else {}
+            self.ctx.log(f"card busy {busy} s over {clock.summary['window_s']} s for "
+                         f"{served} frames answered")
         self.ctx.log(f"requests {q['n']}, failed {self.failed}, latency ms p50 "
                      f"{q['p50']} p95 {q['p95']} p99 {q['p99']}; frames answered "
                      f"{answered} in {wall} s; dispatches {self.srv.batcher.dispatches}, "
@@ -199,19 +204,8 @@ class Driver:
     def _pool_logits(self, control: bool) -> torch.Tensor:
         """The reference's logits of every pool frame (the control's, in the
         precision below the configuration's, with ``control``)."""
-        dev, cfg = self.ctx.device, self.ctx.cfg
-        if self.family == "mlp":
-            dt = torch.bfloat16 if control else torch.float32
-            cols = [f - 1 for f in cfg["features"]["used"]]
-            feats = ref_features.features_of_frames(self.pool, dev, dt)[:, cols].to(dt)
-            mean, std = self.scaler
-            return ref_models.mlp_logits(self.params, (feats - mean.to(dt)) / std.to(dt)).float()
-        rnd = ref_models.fp8 if control else ref_models.bf16
-        out = []
-        for lo in range(0, len(self.pool), REFERENCE_BLOCK):
-            x = torch.view_as_real(torch.from_numpy(self.pool[lo : lo + REFERENCE_BLOCK])).to(dev)
-            out.append(ref_models.cnn_logits(self.params, x[..., 0], x[..., 1], rnd))
-        return torch.cat(out)
+        return self.family.reference_logits(self.ctx.cfg, self.params, self.state, self.pool,
+                                            self.ctx.device, control)
 
     def compare(self, control: bool = False) -> dict[str, float]:
         ref = self._pool_logits(False).double()

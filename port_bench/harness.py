@@ -10,6 +10,8 @@ the benchmark's folder:
   names its driver, ``drivers/<kind>.py``;
 * ``limits/<cell>.json``, the limit of each number the cell's comparison
   reads;
+* ``families/<family>.py``, the model family the configuration's
+  ``family`` names, for the drivers that build a model (``common.family``);
 * ``layer_metrics/<metric>.py``, the reader of each per-layer metric.
 
 A driver module holds ``Driver(ctx)``, whose constructor is the set-up
@@ -193,8 +195,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool, 
                               "idle_gaps": s.get("idle_gaps", [])})
     else:
         values = dict(drv.e2e, setup_s=setup_s)
-        for m in cell.end_to_end:
-            metrics[m["name"]] = {"value": float(values[m["name"]]), "unit": m["unit"]}
+        for m in cell.end_to_end:  # a value the run could not measure (no card) is left out
+            if m["name"] in values:
+                metrics[m["name"]] = {"value": float(values[m["name"]]), "unit": m["unit"]}
         out.update(metrics=metrics, device=dev)
     out["checks"] = checks
     if control:

@@ -4,6 +4,7 @@ lookup by name, on the CPU."""
 from __future__ import annotations
 
 import json
+import os
 import re
 import shutil
 import statistics
@@ -145,6 +146,78 @@ def test_a_new_cell_is_new_files_and_entries_alone(tmp_path):
     assert c.traffic["clients"] == 16 and c.driver.name == "serve.py"
     assert {m["name"] for m, _ in c.per_layer} == {
         m["name"] for m, _ in harness.load_cell(ROOT, "mlp-2048.bulk").per_layer}
+    after = {p: p.read_bytes() for p in before}
+    assert after == before
+
+
+#: a run in a checkout, at the fault tests' ``SMALL["serve"]`` sizes on the
+#: CPU, sound and with the ``answer`` fault; prints each run's ``correct``
+#: and the folder its family was found in
+RUN_SMALL = """
+import json, sys
+from pathlib import Path
+import torch
+from port_bench import common, harness
+small = {"config": {"signals": {"frame_size": 256},
+                    "compute": {"kernel": "fused", "wire_format": "f32"}},
+         "traffic": {"pool_frames": 768, "k_min": 8, "k_max": 64, "k_step": 8, "clients": 2}}
+out = {"families": str(common.FAMILIES)}
+for fault in (None, "answer"):
+    r = harness.run_cell(Path.cwd(), sys.argv[1], 2**31 + 41, 0.5, False, torch.device("cpu"),
+                         overrides=small, fault=fault, log=lambda _: None)
+    out[str(fault)] = {"correct": r["correct"], "attempted": r["attempted"],
+                       "checks": r["checks"]}
+print(json.dumps(out))
+"""
+
+
+def test_a_new_family_is_new_files_and_entries_alone(tmp_path):
+    """A copy of the benchmark gains a model family (a family file, here
+    re-exporting the CNN's), a configuration of it whose classes the traffic
+    generator does not know and whose pool it names apart, its limits and
+    entries: the harness finds the cell, runs it correct on the CPU and
+    sees the ``answer`` fault, without a change to any file it had."""
+    home = tmp_path / "port_bench"
+    shutil.copytree(HOME, home, ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in home.rglob("*") if p.is_file()}
+    (home / "families" / "iqnet.py").write_text(
+        '"""The CNN under another family name."""\n\n'
+        "from port_bench.families.cnn import (  # noqa: F401\n"
+        "    frame_work, params, program_model, reference_logits, scaler)\n")
+    cfg = json.loads((HOME / "configs" / "cnn-2048.json").read_text())
+    cfg.update(name="iqnet-2048", family="iqnet")
+    cfg["signals"]["pool_modulations"] = cfg["signals"]["modulations"]
+    cfg["signals"]["modulations"] = ["OOK", "4ASK", "FM", "GMSK", "AM-SSB-WC", "OQPSK"]
+    (home / "configs" / "iqnet-2048.json").write_text(json.dumps(cfg))
+    (home / "limits" / "iqnet-2048.bulk.json").write_text(
+        (HOME / "limits" / "cnn-2048.bulk.json").read_text())
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "iqnet-2048", "source": "a test", "reduced": [],
+                             "file": "port_bench/configs/iqnet-2048.json", "why": "a test"})
+    bench["workloads"].append({"name": "iqnet-2048.bulk", "config": "iqnet-2048",
+                               "traffic": "bulk", "chips": 1, "why": "a new family"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "cnn-2048.bulk" in m.get("workloads", []):
+            m["workloads"].append("iqnet-2048.bulk")
+    assert "iqnet-2048.bulk" in next(m for m in bench["end_to_end"]
+                                     if m["name"] == "serve_card_us_per_frame")["workloads"]
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    c = harness.load_cell(tmp_path, "iqnet-2048.bulk")
+    assert c.cfg["family"] == "iqnet" and c.driver.name == "serve.py"
+    assert {m["name"] for m, _ in c.per_layer} == {
+        m["name"] for m, _ in harness.load_cell(ROOT, "cnn-2048.bulk").per_layer}
+
+    # the copy's own package, as a run from its checkout imports it
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), str(ROOT)]))
+    proc = subprocess.run([sys.executable, "-c", RUN_SMALL, "iqnet-2048.bulk"], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert Path(out["families"]) == home / "families"
+    assert out["None"]["correct"] and out["None"]["attempted"] > 0, out["None"]
+    assert not out["answer"]["correct"], out["answer"]
+
     after = {p: p.read_bytes() for p in before}
     assert after == before
 

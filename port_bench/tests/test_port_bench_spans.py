@@ -1,8 +1,9 @@
 """The per-layer metrics read from the program's spans
 (``amcpy_tpu_torch.utils.metrics.spans()``), on the CPU: a traced run of a
 bulk and of the extract cell at a small size prints each of them, a
-positive number (a share at most 100 %), and each reader's arithmetic on
-hand-made records.
+positive number (a share at most 100 %; ``inplace_share.serve`` reads 0
+here, since the CPU route concatenates a coalesced group by design), and
+each reader's arithmetic on hand-made records.
 
     python -m pytest port_bench/tests/test_port_bench_spans.py -q
 """
@@ -25,7 +26,7 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 SPAN_METRICS = {m["name"]: m for m in BENCH["per_layer"] if m["source"] == "program_span"
                 and m["name"] != "extract_stage_share.extract"}
 #: the small sizes of ``test_port_bench_faults.py``; four clients, so that
-#: requests queue behind a dispatch and are coalesced (a concatenate)
+#: requests queue behind a dispatch and are coalesced
 FUSED = {"kernel": "fused", "wire_format": "f32"}
 SMALL = {
     "mlp-2048.bulk": {"config": {"signals": {"frame_size": 256}, "compute": FUSED},
@@ -59,11 +60,19 @@ def _rec(name: str, ms: float, **counts):
                            counts=counts)
 
 
+def _one_of_each() -> list:
+    """One span of each name a span reader reads; the dispatch coalesces two
+    requests."""
+    return [_rec(n, 1.0, frames=4, bytes=4, requests=2) for n in (
+        "amc.queue", "amc.concat", "amc.reply", "amc.stage.write", "amc.fetch",
+        "amc.dispatch", "amc.extract.pass", "amc.extract.load_wait", "amc.io.save_features")]
+
+
 def test_seven_span_metrics_are_listed():
     assert set(SPAN_METRICS) == {
-        "queue_wait_ms.serve", "concat_gbps.serve", "reply_us_per_frame.serve",
-        "staging_gbps.serve", "device_wait_ms.serve", "load_wait_share.extract",
-        "save_share.extract"}
+        "queue_wait_ms.serve", "reply_us_per_frame.serve", "staging_gbps.serve",
+        "device_wait_ms.serve", "load_wait_share.extract", "save_share.extract",
+        "inplace_share.serve"}
 
 
 @pytest.mark.parametrize("cell", sorted(SMALL))
@@ -81,6 +90,9 @@ def test_a_traced_run_prints_each_span_metric(cell):
     assert mine and mine <= set(out["metrics"])
     for name in mine:
         value = out["metrics"][name]["value"]
+        if name == "inplace_share.serve":  # the CPU concatenates every coalesced group
+            assert value == 0.0
+            continue
         assert value > 0, name
         if out["metrics"][name]["unit"] == "%":
             assert value <= 100, name
@@ -95,7 +107,6 @@ def test_serve_readers_arithmetic(recorder):
                  _rec("amc.fetch", 3.0, frames=16), _rec("amc.fetch", 5.0, frames=16),
                  _rec("amc.dispatch", 50.0, frames=16)]
     assert reader("queue_wait_ms.serve")(r) == pytest.approx(4.0)
-    assert reader("concat_gbps.serve")(r) == pytest.approx(10e6 / 5e-3 / 1e9)
     assert reader("reply_us_per_frame.serve")(r) == pytest.approx(4e-3 / 4000 * 1e6)
     assert reader("staging_gbps.serve")(r) == pytest.approx(5.0)
     assert reader("device_wait_ms.serve")(r) == pytest.approx(4.0)
@@ -115,9 +126,7 @@ def test_extract_readers_arithmetic(recorder):
 
 @pytest.mark.parametrize("metric", sorted(SPAN_METRICS))
 def test_a_reader_is_silent_without_frames_or_its_spans(recorder, metric):
-    recorder += [_rec(n, 1.0, frames=4, bytes=4) for n in (
-        "amc.queue", "amc.concat", "amc.reply", "amc.stage.write", "amc.fetch",
-        "amc.extract.pass", "amc.extract.load_wait", "amc.io.save_features")]
+    recorder += _one_of_each()
     assert reader(metric)(Readings({}, {"frames": 0}, {})) is None
     assert reader(metric)(Readings({}, {"frames": 4}, {})) is not None
     recorder.clear()
@@ -130,9 +139,7 @@ def test_a_reader_is_silent_where_the_recorder_dropped_spans(recorder, monkeypat
     reader computes a share or a rate from it."""
     from amcpy_tpu_torch.utils import metrics
 
-    recorder += [_rec(n, 1.0, frames=4, bytes=4) for n in (
-        "amc.queue", "amc.concat", "amc.reply", "amc.stage.write", "amc.fetch",
-        "amc.extract.pass", "amc.extract.load_wait", "amc.io.save_features")]
+    recorder += _one_of_each()
     assert reader(metric)(Readings({}, {"frames": 4}, {})) is not None
     monkeypatch.setattr(metrics, "spans_dropped", lambda: 1)
     assert reader(metric)(Readings({}, {"frames": 4}, {})) is None

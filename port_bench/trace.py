@@ -109,10 +109,16 @@ class Tracer:
     ``trace.json`` in ``workdir`` and summarized. A driver calls
     :meth:`start` and :meth:`stop` at the edges of whole units of work (a
     pass, an epoch, or a moment with no request in flight) and records
-    what the slice held in :attr:`counts`."""
+    what the slice held in :attr:`counts`.
 
-    def __init__(self, workdir: Path):
+    With ``host=False`` it records the device's activity alone (CUPTI's
+    kernels, copies and memsets, no host operators or spans): the device
+    clock of an untraced window, whose ``busy_s`` an end-to-end metric
+    reads."""
+
+    def __init__(self, workdir: Path, host: bool = True):
         self.path = Path(workdir) / "trace.json"
+        self.host = host
         self.counts: dict[str, float] = {}
         self.summary: dict | None = None
         self._prof = None
@@ -122,15 +128,17 @@ class Tracer:
         import torch
         from torch.profiler import ProfilerActivity, profile
 
-        acts = [ProfilerActivity.CPU]
+        acts = [ProfilerActivity.CPU] if self.host else []
         if torch.cuda.is_available():
             acts.append(ProfilerActivity.CUDA)
+        extra = {}
         try:  # the host spans of every thread (clients, the batcher), not this one's alone
             from torch._C._profiler import _ExperimentalConfig
 
-            extra = {"experimental_config": _ExperimentalConfig(profile_all_threads=True)}
+            if self.host:
+                extra = {"experimental_config": _ExperimentalConfig(profile_all_threads=True)}
         except (ImportError, TypeError):
-            extra = {}
+            pass
         self._prof = profile(activities=acts, **extra)
         self._prof.__enter__()
         self._t0 = time.perf_counter()

@@ -127,14 +127,11 @@ def head_widths(cfg: dict) -> list[int]:
 
 
 def serve_frame_work(cfg: dict) -> dict[str, float]:
-    """Model work of classifying one frame, by unit: the features (K1's
-    count) and the MLP, or the CNN trunk (K3's count) and its head."""
-    n = cfg["signals"]["frame_size"]
-    if cfg["family"] == "mlp":
-        return {"fp32_lane_ops": k1_work(1, n)[1] + dense_macs(mlp_widths(cfg))}
-    _, tensor, fp32 = k3_work(1, n, cnn_widths(cfg))
-    return {"bf16_tensor_flop": tensor,
-            "fp32_lane_ops": fp32 + dense_macs(head_widths(cfg))}
+    """Model work of classifying one frame, by unit: the ``frame_work`` of
+    ``cfg``'s family (``families/<family>.py``)."""
+    from port_bench.common import family
+
+    return family(cfg).frame_work(cfg)
 
 
 def extract_frame_work(cfg: dict) -> dict[str, float]:
