@@ -41,6 +41,11 @@ class AMCClassifier(nn.Module):
     :func:`amcpy_tpu_torch.train.checkpoint.params_from_flax`.
     """
 
+    #: the sidecar's ``model.family``
+    family = "mlp"
+    #: takes the standardized features, not raw I/Q frames
+    takes_iq = False
+
     def __init__(
         self,
         n_classes: int,

@@ -124,6 +124,11 @@ def augment(
 class IQConvNet(nn.Module):
     """1-D CNN over raw planar IQ frames ``(B, 2, N)``; float32 logits."""
 
+    #: the sidecar's ``model.family``
+    family = "cnn"
+    #: takes raw I/Q frames, of any length (the pooling is over time)
+    takes_iq = True
+
     def __init__(
         self,
         n_classes: int,

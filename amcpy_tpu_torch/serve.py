@@ -1,8 +1,9 @@
 """Serving: raw IQ -> modulation label.
 
 Counterpart of ``amcpy_tpu/serve.py`` (``AMCPipeline``) on one device, for
-both model families: the feature MLP (extract -> standardize -> classify)
-and the raw-IQ CNN (frames straight into the model):
+every model family: the feature MLP (extract -> standardize -> classify)
+and the raw-IQ models, the CNN and the ResNet (frames straight into the
+model):
 
     pipe = AMCPipeline.from_checkpoint(cfg, model_id)   # device=None: CUDA
     labels = pipe.predict(frames)            # (B, N) complex or (B, 2, N)
@@ -39,15 +40,18 @@ a factorizable N is encoded on the host (``ops/wire.py``), crosses as
 block-float integers, and is decoded on the device before K1; every other
 request, and every other format, crosses as float32.
 
-A raw-IQ :class:`~amcpy_tpu_torch.models.cnn.IQConvNet` checkpoint has no
-feature or standardize stage (the identity scaler in its sidecar is not
-used). When the kernel resolves to ``"fused"`` (``"auto"`` on CUDA) and
-:func:`~amcpy_tpu_torch.ops.cnn_infer.supports_fused` holds (the default
-k=1/stride-1 bf16 stack), a request runs the CUDA trunk kernel K3 on the I
-and Q planes and the dense head (``cnn_logits_fused``, with the BatchNorm
-folded once when the pipeline is built). Every other case runs the module
-forward, as the JAX package does: ``kernel="xla"`` or ``"pallas"``, the
-CPU, a k>1 or strided stack, an f32 model.
+A model whose ``takes_iq`` holds (:class:`~amcpy_tpu_torch.models.cnn.IQConvNet`,
+:class:`~amcpy_tpu_torch.models.resnet.RadioResNet`) takes the raw frames:
+its checkpoint has no feature or standardize stage (the identity scaler in
+its sidecar is not used) and it never takes the int24 wire. For an
+``IQConvNet``, when the kernel resolves to ``"fused"`` (``"auto"`` on
+CUDA) and :func:`~amcpy_tpu_torch.ops.cnn_infer.supports_fused` holds (the
+default k=1/stride-1 bf16 stack), a request runs the CUDA trunk kernel K3
+on the I and Q planes and the dense head (``cnn_logits_fused``, with the
+BatchNorm folded once when the pipeline is built). Every other case runs
+the module forward on ``(B, 2, N)``, as the JAX package does:
+``kernel="xla"`` or ``"pallas"``, the CPU, a k>1 or strided stack, an f32
+model, the ResNet.
 
 A request fans out over ``devices`` (by default every visible CUDA device,
 or only the pipeline's own device in a rank of a process group, which owns
@@ -74,6 +78,7 @@ from amcpy_tpu_torch.config import Config
 from amcpy_tpu_torch.extraction import _kernel_fn, resolve_kernel
 from amcpy_tpu_torch.models.classifier import AMCClassifier
 from amcpy_tpu_torch.models.cnn import IQConvNet
+from amcpy_tpu_torch.models.resnet import RadioResNet
 from amcpy_tpu_torch.ops.cnn_infer import (
     cnn_logits_fused,
     fold_bn_params,
@@ -196,7 +201,7 @@ def _check_frames(frames) -> list[np.ndarray]:
 
 
 class AMCPipeline:
-    """Inference pipeline: extract + standardize + MLP, or the raw-IQ CNN."""
+    """Inference pipeline: extract + standardize + MLP, or a raw-IQ model."""
 
     #: the smallest MLP request that takes the int24 wire program (the JAX
     #: package's threshold: below it the host encode costs more than the
@@ -208,7 +213,7 @@ class AMCPipeline:
 
     def __init__(
         self,
-        model: "AMCClassifier | IQConvNet",
+        model: "AMCClassifier | IQConvNet | RadioResNet",
         scaler: Standardizer,
         cfg: Config,
         device: "str | torch.device | None" = None,
@@ -239,11 +244,11 @@ class AMCPipeline:
         self.coalesced_in_place = 0
         self.coalesced_concatenated = 0
         self._count_lock = threading.Lock()
-        if isinstance(model, IQConvNet):
+        if self.takes_iq:
             #: folded trunk and head weights when requests run K3, else None
             self._folded = (
                 fold_bn_params(self.model)
-                if self._kernel == "fused" and supports_fused(model)
+                if self.is_cnn and self._kernel == "fused" and supports_fused(model)
                 else None
             )
             # K3 takes the I and Q planes, the module forward (B, 2, N)
@@ -360,7 +365,7 @@ class AMCPipeline:
         return (
             self._wire == "int24"
             and b >= self.WIRE_MIN_BATCH
-            and not self.is_cnn
+            and not self.takes_iq
             and self._kernel == "fused"
             and best_factorization(n) is not None
         )
@@ -380,6 +385,17 @@ class AMCPipeline:
     def is_cnn(self) -> bool:
         return isinstance(self.model, IQConvNet)
 
+    @property
+    def takes_iq(self) -> bool:
+        """Whether the model takes the raw frames (no features, no scaler)."""
+        return self.model.takes_iq
+
+    @property
+    def frame_size(self) -> int | None:
+        """The one frame length a fixed-length model (one with a
+        ``frame_size``, the ResNet) takes, else None: any length runs."""
+        return getattr(self.model, "frame_size", None)
+
     @torch.inference_mode()
     def logits(self, frames: "np.ndarray | list[np.ndarray]") -> torch.Tensor:
         """Logits ``(B, n_classes)`` on the pipeline's device, the request
@@ -397,13 +413,13 @@ class AMCPipeline:
 
     def _logits_here(self, pieces: list[np.ndarray]) -> torch.Tensor:
         """Logits of a request's checked arrays on this pipeline's device;
-        the model's launches (features, standardize and MLP, or K3 and the
-        head) are the span ``amc.model``."""
+        the model's launches (features, standardize and MLP, K3 and the
+        head, or a raw-IQ module forward) are the span ``amc.model``."""
         rows = sum(len(p) for p in pieces)
         wire = self._wire_eligible(rows, pieces[0].shape[-1])
         arrs = self._to_device_wire(self._joined(pieces)) if wire else self._to_device(pieces)
         with span("amc.model", frames=rows):
-            if self.is_cnn:
+            if self.takes_iq:
                 if self._folded is not None:
                     return cnn_logits_fused(self.model, *arrs, folded=self._folded)
                 return self.model(*arrs)

@@ -35,15 +35,20 @@ on the card (``device=None``) or on the CPU (``device="cpu"``).
 
 Endpoints:
 
-* ``GET  /healthz`` — the device, the model's frame size and classes, and
-  the batcher's counters, with the pipeline's count of coalesced groups
-  written into the staging buffer in pieces and of those concatenated;
+* ``GET  /healthz`` — the device, the model's family, frame size and
+  classes, the requests refused for their frame size, and the batcher's
+  counters, with the pipeline's count of coalesced groups written into the
+  staging buffer in pieces and of those concatenated;
 * ``POST /classify?format=c64|planar&probs=1`` — labels and class ids (and
   probabilities).
 
 A ``frame_size`` other than the model's gets 400 unless
-``allow_any_frame_size=1``: the features shift with N. The server binds
-127.0.0.1 unless told otherwise; it has no authentication.
+``allow_any_frame_size=1``: the features shift with N. A model with a
+fixed input length (the pipeline's ``frame_size``: the ResNet, whose
+flatten ties it to its N) takes no other, override or not:
+:meth:`AMCServer.classify` raises ``ValueError`` and the handler answers
+400 (``frame_size_refused`` counts both). The server binds 127.0.0.1
+unless told otherwise; it has no authentication.
 """
 
 from __future__ import annotations
@@ -258,7 +263,11 @@ class AMCServer:
         self.cfg = cfg
         self.pipe = AMCPipeline.from_checkpoint(cfg, model_id, device=device)
         self.mods = list(cfg.signals.modulations_with_noise)
-        self.frame_size = cfg.signals.frame_size
+        #: the model's frame size: a fixed-length model's own, else the
+        #: configuration's (what the features were trained at)
+        self.frame_size = self.pipe.frame_size or cfg.signals.frame_size
+        #: requests refused for their frame size
+        self.frame_size_refused = 0
         self.max_body = max_body
         #: bounds the request bodies being read at once
         self._read_sem = threading.Semaphore(max(1, max_concurrent_reads))
@@ -291,11 +300,33 @@ class AMCServer:
 
     # ------------------------------------------------------------------
 
+    def check_frame_size(self, frame_size: int, allow_any: bool) -> None:
+        """Raise ``ValueError`` for a frame size the model does not take: any
+        other than a fixed-length model's own, or, unless ``allow_any``,
+        any other than the configuration's. Each refusal is counted."""
+        fixed = self.pipe.frame_size
+        if fixed is not None and frame_size != fixed:
+            msg = (f"frame_size {frame_size} != {fixed}: the {self.pipe.model.family} "
+                   f"model takes frames of {fixed} samples only (its flatten is "
+                   "fixed to it); allow_any_frame_size does not apply")
+        elif fixed is None and frame_size != self.frame_size and not allow_any:
+            msg = (f"frame_size {frame_size} != model's training frame size "
+                   f"{self.frame_size}: the feature statistics shift with "
+                   "N, so labels would be unreliable. Pass "
+                   "allow_any_frame_size=1 to override.")
+        else:
+            return
+        with self._stats_lock:
+            self.frame_size_refused += 1
+        raise ValueError(msg)
+
     def classify(self, body, fmt: str, frame_size: int, want_probs: bool) -> dict[str, Any]:
         """Labels (and probabilities) of the frames in ``body``: complex64
         ``(B, frame_size)`` for ``c64``, float32 ``(B, 2, frame_size)`` for
-        ``planar``."""
+        ``planar``. A fixed-length model refuses any other ``frame_size``
+        (``ValueError``)."""
         with span("amc.request", wait=True) as req:
+            self.check_frame_size(frame_size, allow_any=True)
             if fmt not in ("c64", "planar"):
                 raise ValueError(f"unknown format {fmt!r} (use c64|planar)")
             if len(body) % (8 * frame_size):
@@ -346,8 +377,10 @@ class AMCServer:
             "device": str(dev),
             "device_name": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                             else "cpu"),
+            "family": self.pipe.model.family,
             "frame_size": self.frame_size,
             "classes": self.mods,
+            "frame_size_refused": self.frame_size_refused,
             "requests": self._requests,
             "frames_classified": self._frames,
             "batcher": {
@@ -425,15 +458,8 @@ def _make_handler(server: AMCServer):
                 frame_size = int(q.get("frame_size", [server.frame_size])[0])
                 if frame_size <= 0:
                     raise ValueError(f"frame_size must be > 0, got {frame_size}")
-                if frame_size != server.frame_size and q.get(
-                    "allow_any_frame_size", ["0"]
-                )[0] not in ("1", "true"):
-                    raise ValueError(
-                        f"frame_size {frame_size} != model's training frame size "
-                        f"{server.frame_size}: the feature statistics shift with "
-                        "N, so labels would be unreliable. Pass "
-                        "allow_any_frame_size=1 to override."
-                    )
+                server.check_frame_size(frame_size, q.get(
+                    "allow_any_frame_size", ["0"])[0] in ("1", "true"))
                 want_probs = q.get("probs", ["0"])[0] in ("1", "true")
                 if not server._reserve(length):
                     self.close_connection = True  # the body is not read

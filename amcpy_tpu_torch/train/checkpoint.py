@@ -4,8 +4,10 @@ Counterpart of ``amcpy_tpu/train/checkpoint.py``. A checkpoint is
 ``ann/model-{id}.pt`` plus ``ann/model-{id}.json``, a sidecar with the same
 keys as the JAX package's: scaler, used columns, training hyperparameters,
 split provenance, history, epoch and model family. ``model.family`` is
-``"mlp"`` (the feature MLP) or ``"cnn"`` (the raw-IQ :class:`IQConvNet`,
-rebuilt from ``model.arch``). The ``.pt`` file (read back with
+``"mlp"`` (the feature MLP), ``"cnn"`` (the raw-IQ :class:`IQConvNet`,
+rebuilt from ``model.arch``) or ``"resnet"`` (the RadioML 2018
+:class:`RadioResNet`, rebuilt from ``model.arch`` and the frame size of
+``model.input_shape``). The ``.pt`` file (read back with
 ``weights_only=True``) holds ``{"model": state_dict, "optimizer":
 optimizer state_dict or None, "step": int}``, a complete snapshot to
 resume from; a file holding a bare model ``state_dict`` (the port's first
@@ -47,6 +49,7 @@ import torch
 from amcpy_tpu_torch.config import Config
 from amcpy_tpu_torch.models.classifier import AMCClassifier
 from amcpy_tpu_torch.models.cnn import IQConvNet
+from amcpy_tpu_torch.models.resnet import RadioResNet
 from amcpy_tpu_torch.parallel.audit import barrier
 from amcpy_tpu_torch.parallel.mesh import group_up, is_primary
 from amcpy_tpu_torch.preprocessing import Standardizer
@@ -77,7 +80,7 @@ def _write_atomic(path: Path, data, mode: str) -> None:
 def save_checkpoint(
     cfg: Config,
     model_id: str,
-    model: "AMCClassifier | IQConvNet",
+    model: "AMCClassifier | IQConvNet | RadioResNet",
     scaler: Standardizer,
     history: dict[str, list[float]] | None = None,
     epoch: int | None = None,
@@ -90,12 +93,20 @@ def save_checkpoint(
     optimizer's state and the step counter, so that the run can resume.
     ``model_meta`` defaults to ``{"family": "mlp"}`` for the MLP and, for an
     :class:`IQConvNet`, to ``{"family": "cnn", "input_shape": [2, N],
-    "arch": {...}}`` with the keys the JAX CLI writes.
+    "arch": {...}}`` with the keys the JAX CLI writes; for a
+    :class:`RadioResNet`, to ``{"family": "resnet", "input_shape": [2,
+    frame_size], "arch": {...}}``, the model's own frame size.
     """
     if model_meta is None and isinstance(model, IQConvNet):
         model_meta = {
             "family": "cnn",
             "input_shape": [2, cfg.signals.frame_size],
+            "arch": model.arch(),
+        }
+    elif model_meta is None and isinstance(model, RadioResNet):
+        model_meta = {
+            "family": "resnet",
+            "input_shape": [2, model.frame_size],
             "arch": model.arch(),
         }
     cfg.paths.ensure_dirs()
@@ -159,7 +170,8 @@ def save_checkpoint(
 
 def load_checkpoint(
     cfg: Config, model_id: str
-) -> tuple["AMCClassifier | IQConvNet", TrainState, Standardizer, dict[str, Any]]:
+) -> tuple["AMCClassifier | IQConvNet | RadioResNet", TrainState, Standardizer,
+           dict[str, Any]]:
     """Rebuild ``(model, state, scaler, meta)``: the model (on the CPU, in
     eval mode), its training state (the optimizer's ``state_dict``, None
     when the file has none, and the step counter), the scaler and the
@@ -178,6 +190,12 @@ def load_checkpoint(
                 k: tuple(v) if isinstance(v, list) else v
                 for k, v in (mcfg.get("arch") or {}).items()
             },
+        )
+    elif family == "resnet":
+        model = RadioResNet(
+            n_classes=meta["config"]["n_classes"],
+            frame_size=mcfg["input_shape"][1],
+            **mcfg["arch"],
         )
     elif family == "mlp":
         tcfg = meta["config"]["training"]
