@@ -28,7 +28,10 @@ Parameter names: ``stacks.s.proj``, ``stacks.s.units.u.conv1``/``conv2``,
 
 Spans (``utils/metrics.py``): ``amc.resnet.stack`` once a stack (counts
 ``stack``, ``frames``) and ``amc.resnet.head`` for the flatten and the
-FCs (``frames``). Counters: :attr:`forwards` and :attr:`frames`.
+FCs (``frames``, :meth:`head`). Counters: :attr:`forwards` and
+:attr:`frames`. On the card the serving pipeline runs the stacks as one
+kernel each (``ops/resnet_trunk.py::resnet_logits_fused``), with the same
+spans and counters, then :meth:`head`.
 """
 
 from __future__ import annotations
@@ -133,8 +136,13 @@ class RadioResNet(nn.Module):
             for s, stack in enumerate(self.stacks):
                 with span("amc.resnet.stack", stack=s, frames=b):
                     x = stack(x)
-            with span("amc.resnet.head", frames=b):
-                x = x.flatten(1)
-                for dense in self.dense:
-                    x = F.selu(dense(x))
-                return self.out(x)
+            return self.head(x)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits from the last stack's ``(B, filters, N / 2**stacks)``
+        output: the flatten and the FCs, in float32 with TF32 off."""
+        with span("amc.resnet.head", frames=x.shape[0]), no_tf32():
+            x = x.flatten(1)
+            for dense in self.dense:
+                x = F.selu(dense(x))
+            return self.out(x)

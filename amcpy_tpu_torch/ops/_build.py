@@ -56,6 +56,11 @@ SIGNATURES: dict[str, dict[str, tuple[list, object]]] = {
         "amc_cnn_trunk_path": ([_P, _I], _I),
         "amc_error_string": ([_I], ctypes.c_char_p),
     },
+    "resnet_trunk": {
+        "amc_resnet_stack": ([_P, _P, _P, _I, _I, _I, _P], _I),
+        "amc_resnet_stack_fits": ([_I, _I], _I),
+        "amc_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _lock = threading.Lock()

@@ -48,10 +48,15 @@ its sidecar is not used) and it never takes the int24 wire. For an
 CUDA) and :func:`~amcpy_tpu_torch.ops.cnn_infer.supports_fused` holds (the
 default k=1/stride-1 bf16 stack), a request runs the CUDA trunk kernel K3
 on the I and Q planes and the dense head (``cnn_logits_fused``, with the
-BatchNorm folded once when the pipeline is built). Every other case runs
-the module forward on ``(B, 2, N)``, as the JAX package does:
-``kernel="xla"`` or ``"pallas"``, the CPU, a k>1 or strided stack, an f32
-model, the ResNet.
+BatchNorm folded once when the pipeline is built). A
+:class:`~amcpy_tpu_torch.models.resnet.RadioResNet` on CUDA whose widths
+:func:`~amcpy_tpu_torch.ops.resnet_trunk.supports_fused` takes runs one
+stack kernel a stack and the module's head (``resnet_logits_fused``, the
+weights packed once when the pipeline is built);
+:attr:`AMCPipeline.resnet_fused_forwards` counts those requests. Every
+other case runs the module forward on ``(B, 2, N)``, as the
+JAX package does: ``kernel="xla"`` or ``"pallas"`` for the CNN, the CPU, a
+k>1 or strided stack, an f32 CNN, a ResNet of other widths.
 
 A request fans out over ``devices`` (by default every visible CUDA device,
 or only the pipeline's own device in a rank of a process group, which owns
@@ -86,6 +91,8 @@ from amcpy_tpu_torch.ops.cnn_infer import (
 )
 from amcpy_tpu_torch.ops.fft import best_factorization
 from amcpy_tpu_torch.ops.fused import split_planes
+from amcpy_tpu_torch.ops.resnet_trunk import pack_params, resnet_logits_fused
+from amcpy_tpu_torch.ops.resnet_trunk import supports_fused as resnet_supports_fused
 from amcpy_tpu_torch.ops.wire import encode_planes, resolve_wire_format
 from amcpy_tpu_torch.parallel.mesh import group_up
 from amcpy_tpu_torch.preprocessing import Standardizer
@@ -243,12 +250,22 @@ class AMCPipeline:
         #: in pieces, and those concatenated on the host first
         self.coalesced_in_place = 0
         self.coalesced_concatenated = 0
+        #: ResNet requests that ran the stack kernels
+        self.resnet_fused_forwards = 0
         self._count_lock = threading.Lock()
         if self.takes_iq:
             #: folded trunk and head weights when requests run K3, else None
             self._folded = (
                 fold_bn_params(self.model)
                 if self.is_cnn and self._kernel == "fused" and supports_fused(model)
+                else None
+            )
+            #: each stack's packed weights when requests run the ResNet's
+            #: stack kernels, else None
+            self._resnet_packed = (
+                pack_params(self.model)
+                if not self.is_cnn and self.device.type == "cuda"
+                and resnet_supports_fused(self.model)
                 else None
             )
             # K3 takes the I and Q planes, the module forward (B, 2, N)
@@ -422,6 +439,10 @@ class AMCPipeline:
             if self.takes_iq:
                 if self._folded is not None:
                     return cnn_logits_fused(self.model, *arrs, folded=self._folded)
+                if self._resnet_packed is not None:
+                    with self._count_lock:
+                        self.resnet_fused_forwards += 1
+                    return resnet_logits_fused(self.model, *arrs, self._resnet_packed)
                 return self.model(*arrs)
             feats = (self._extract_wire if wire else self._extract)(*arrs)
             x = (feats[:, self._cols] - self._mean) / self._std

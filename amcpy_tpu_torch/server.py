@@ -38,7 +38,8 @@ Endpoints:
 * ``GET  /healthz`` — the device, the model's family, frame size and
   classes, the requests refused for their frame size, and the batcher's
   counters, with the pipeline's count of coalesced groups written into the
-  staging buffer in pieces and of those concatenated;
+  staging buffer in pieces and of those concatenated, and of the ResNet's
+  requests run by its stack kernels;
 * ``POST /classify?format=c64|planar&probs=1`` — labels and class ids (and
   probabilities).
 
@@ -390,6 +391,7 @@ class AMCServer:
                 "window_ms": b.window_s * 1e3,
                 "coalesced_in_place": self.pipe.coalesced_in_place,
                 "coalesced_concatenated": self.pipe.coalesced_concatenated,
+                "resnet_fused_forwards": self.pipe.resnet_fused_forwards,
             },
         }
 

@@ -33,7 +33,13 @@ Phases, each printing one JSON line:
    one computes the same function, and for K3 of the module forward (K1's
    cluster route at 128 x 65536 and 256 x 32768, the 4096 x 2048 row's
    samples, and at 64 x 131072, each with its launch: threads a block,
-   warps an SM, clusters at once and waves);
+   warps an SM, clusters at once and waves); then the ResNet's stack
+   kernel (line ``resnet_trunk``) against the module forward with TF32 off,
+   each stack and the logits at 1 ... 16,384 frames of 1024 within 1e-5 of
+   the largest magnitude, and its ms a stack and for the six stacks at
+   4,096 and 16,384 frames beside the bound and the module forward's (the
+   kernel's plain version is the module's own stack), with ptxas's
+   registers and spills;
 4. extraction — the main path: a numpy-made ``all_modulations.mat`` at the
    default config (6 modulations x 16 SNR x 1000 frames x 2048 samples)
    through ``run_extraction`` with ``kernel="auto"``; six artifacts of
@@ -195,9 +201,16 @@ Phases, each printing one JSON line:
    the plain pipeline (argmax identical, logits within 1e-3); frames of
    2^19 samples, which fit neither route: ``extract_features_fused``
    raises and ``extract_features_fused_any`` answers through its counted
-   reroute, equal to the plain extractor, with no launch.
+   reroute, equal to the plain extractor, with no launch;
+18. serving_resnet — the RadioML 2018 ResNet (the serving cell's seeded
+   weights) served by a CUDA ``AMCPipeline`` through its stack kernels:
+   complex64 requests of 1, 100 and 10,880 frames of 1024 samples (the
+   serving cell's dispatch size) and one planar of 10,880, each against the
+   module forward on the same frames (within 1e-5 of the largest logit),
+   then timed; six stack launches for every forward the pipeline counts
+   (``resnet_fused_forwards``).
 
-Twenty-one paths are driven through the kernels: extraction and serving with
+Twenty-two paths are driven through the kernels: extraction and serving with
 ``kernel="auto"`` (both through K1), serving with ``kernel="pallas"``
 (through K2), CNN serving (through K3), serving of phase 9's trained
 CNN (through K3), the three servers of phase 11 (the MLPs through K1, the
@@ -207,8 +220,8 @@ CNN through K3), the int24 serving program and extraction of phase 12
 synthetic extraction (through K1) and its ``kernel="pallas"`` run (through
 K2), phase 14's round-robin extraction
 through the process group (through K1), phase 15's wire gate (through K1
-and K2) and phase 17's extraction and serving (through K1's cluster
-route). Every launch counter is set to 0 just before each path and read
+and K2), phase 17's extraction and serving (through K1's cluster
+route) and phase 18's ResNet serving (through the stack kernel). Every launch counter is set to 0 just before each path and read
 just after it; the run fails if a path did not launch its kernel, took a
 reroute, or (the paths of 2048-sample frames) left K1's block route.
 The checked call of each request also records its own launches; phases 8
@@ -705,6 +718,173 @@ def k3_check_and_time(torch, dev, checks: list) -> dict:
     if cnn_trunk.launches <= before:
         raise AssertionError("the CNN trunk kernel's launch counter did not rise")
     return k3
+
+
+#: the ResNet stack kernel's timed batches of 1024-sample frames (the
+#: serving cell's dispatches are ~10,700 frames, up to 16,384)
+RESNET_TIMED = (4096, 16384)
+#: its checks against the module forward: batches and the largest gap
+#: allowed over the largest magnitude (two float32 orders of one sum)
+RESNET_CHECKS = (1, 3, 127, 4096, 16384)
+RESNET_RTOL = 1e-5
+
+
+def resnet_stack_work(c_in: int, length: int) -> float:
+    """FP32 lane operations of one frame of a stack: the 1x1 conv's and the
+    four k=3 convs' multiply-adds, one FMA each (biases, ReLUs, adds and
+    the pool left out, as ``port_bench/families/resnet.py::frame_work``)."""
+    return float(length) * (c_in * 32 + 4 * 32 * 32 * 3)
+
+
+def resnet_model(torch, dev, seed: int = 2**31 + 21):
+    """The published ResNet with the benchmark's seeded weights (every
+    stack's activations O(1)), in eval on ``dev``."""
+    from amcpy_tpu_torch.data.legacy import DEEPSIG_CLASSES
+    from amcpy_tpu_torch.models.resnet import RadioResNet
+    from port_bench.reference.resnet import resnet_params
+
+    cfg = {"model": {"stacks": 6, "filters": 32, "kernel_size": 3, "dense": [128, 128]},
+           "signals": {"frame_size": 1024, "modulations": list(DEEPSIG_CLASSES)}}
+    model = RadioResNet()
+    model.load_state_dict(resnet_params(cfg, seed, "cpu"))
+    return model.eval().to(dev)
+
+
+def resnet_frames(torch, dev, b: int, seed: int):
+    """(b, 2, 1024) planar float32 frames on ``dev``, per-frame scale
+    exp(U(-1, 1))."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, 2, 1024)) * np.exp(rng.uniform(-1, 1, (b, 1, 1)))
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+def resnet_trunk_check_and_time(torch, dev) -> dict:
+    """The ResNet's stack kernel (``amc_resnet_stack``) against the module
+    forward on the card, each stack and the logits (``RESNET_CHECKS``),
+    then at ``RESNET_TIMED`` frames the ms of each stack's launch and of the
+    six (mean of 20, inputs rotated past the 50 MB L2) beside their bound
+    (FP32 lanes) and the module forward's (cuDNN and aten, TF32 off: the
+    library figure, and the plain version, which is the module's stack)."""
+    from amcpy_tpu_torch.ops.resnet_trunk import pack_params, resnet_logits_fused, resnet_stack
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = resnet_model(torch, dev)
+    packed = pack_params(model)
+    row: dict = {"checks": [], "max_abs_err": 0.0, "max_gap_over_tol": 0.0, "timed": {}}
+    before = resnet_stack.launches
+    with torch.inference_mode():
+        for b in RESNET_CHECKS:
+            x = resnet_frames(torch, dev, b, seed=b)
+            gaps = []
+            for st, p in zip(model.stacks, packed):
+                want = st(x)
+                got = resnet_stack(x, p)
+                row["max_abs_err"] = max(row["max_abs_err"], float((got - want).abs().max()))
+                gaps.append(float((got - want).abs().max()) / float(want.abs().max()))
+                x = want
+            x = resnet_frames(torch, dev, b, seed=b)
+            want = model(x)
+            got = resnet_logits_fused(model, x, packed)
+            torch.cuda.synchronize()
+            row["max_abs_err"] = max(row["max_abs_err"], float((got - want).abs().max()))
+            gaps.append(float((got - want).abs().max()) / float(want.abs().max()))
+            row["checks"].append({"frames": b, "gap_over_scale": gaps})
+            row["max_gap_over_tol"] = max(row["max_gap_over_tol"], max(gaps) / RESNET_RTOL)
+        if resnet_stack.launches != before + 12 * len(RESNET_CHECKS):
+            raise AssertionError("the ResNet stack kernel's launch counter did not rise by 12 a check")
+        for b in RESNET_TIMED:
+            x = resnet_frames(torch, dev, b, seed=b + 1)
+            stacks = []
+            for s, (st, p) in enumerate(zip(model.stacks, packed)):
+                c_in, length = x.shape[1], x.shape[2]
+                inputs = rotated(x)
+                stacks.append({
+                    "stack": s, "c_in": c_in, "length": length,
+                    "ms": cuda_ms(lambda a, p=p: resnet_stack(a, p), inputs, 20),
+                    "module_ms": cuda_ms(st, inputs, 5),
+                    "bound_ms": bound(4.0 * b * (c_in * length + 32 * length // 2),
+                                      b * resnet_stack_work(c_in, length))[0],
+                })
+                x = st(x)
+            planes = rotated(resnet_frames(torch, dev, b, seed=b + 2))
+
+            def trunk(a):
+                for p in packed:
+                    a = resnet_stack(a, p)
+                return a
+
+            def module_trunk(a):
+                for st in model.stacks:
+                    a = st(a)
+                return a
+
+            total = {"ms": cuda_ms(trunk, planes, 20),
+                     "module_ms": cuda_ms(module_trunk, planes, 5),
+                     "logits_ms": cuda_ms(lambda a: resnet_logits_fused(model, a, packed),
+                                          planes, 20),
+                     "module_logits_ms": cuda_ms(model, planes, 5),
+                     "bound_ms": sum(r["bound_ms"] for r in stacks)}
+            total["lane_peak_share"] = total["bound_ms"] / total["ms"]
+            row["timed"][str(b)] = {"stacks": stacks, "trunk": total}
+    if row["max_gap_over_tol"] > 1.0:
+        raise AssertionError(f"the ResNet stack kernel disagrees with the module: {row}")
+    return row
+
+
+#: the ResNet's served complex64 requests, in frames of 1024 samples (the
+#: serving cell's dispatches are ~10,700 frames); the last size is also sent
+#: planar
+RESNET_REQUESTS = (1, 100, 10880)
+
+
+def phase_serving_resnet(torch, dev, cfg, counts, zero_counts, paths) -> dict:
+    """Path 22: the ResNet (``resnet_model``) served by a CUDA
+    ``AMCPipeline`` through its stack kernels, every count set to 0 just
+    before: each request of ``RESNET_REQUESTS`` (and the last size planar)
+    against the module forward on the same frames (``RESNET_RTOL`` of the
+    largest logit), then timed; the stack launches must be six for every
+    forward the pipeline counts (``resnet_fused_forwards``), and that count
+    one a call."""
+    from amcpy_tpu_torch.data.legacy import DEEPSIG_CLASSES
+    from amcpy_tpu_torch.preprocessing import Standardizer
+    from amcpy_tpu_torch.serve import AMCPipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = resnet_model(torch, dev)
+    rcfg = cfg.replace(signals={"modulations": DEEPSIG_CLASSES,
+                                "modulations_with_noise": DEEPSIG_CLASSES,
+                                "labels": tuple(range(len(DEEPSIG_CLASSES))),
+                                "frame_size": 1024})
+    identity = Standardizer(np.zeros(1, np.float32), np.ones(1, np.float32))
+    pipe = AMCPipeline(model, identity, rcfg, device=dev, devices=[dev])
+    if pipe._resnet_packed is None:
+        raise AssertionError("the published ResNet on the card did not route to its stack kernels")
+    sent = [(size, "complex") for size in RESNET_REQUESTS] + [(RESNET_REQUESTS[-1], "planar")]
+    requests = []
+    calls = 0
+    zero_counts()
+    for k, (size, form) in enumerate(sent):
+        planes = resnet_frames(torch, "cpu", size, seed=22 + k).numpy()
+        x = (planes[:, 0] + 1j * planes[:, 1]).astype(np.complex64) if form == "complex" else planes
+        out = pipe.logits(x)
+        with torch.inference_mode():
+            ref = model(torch.from_numpy(planes).to(dev))
+        reps = 21 if size < 1000 else 11
+        ms = sorted(timed(torch, lambda: pipe.logits(x)) for _ in range(reps))
+        calls += 1 + reps
+        gap = float((out - ref).abs().max())
+        requests.append({"frames": size, "format": form, "max_logit_diff_vs_module": gap,
+                         "gap_over_tol": gap / (RESNET_RTOL * float(ref.abs().max())),
+                         "ms_median": ms[len(ms) // 2], "ms_max": ms[-1], "reps": reps})
+    c = counts()
+    paths["serving_resnet"] = ("resnet_stack", c)
+    line = {"phase": "serving_resnet", "rtol": RESNET_RTOL, "requests": requests,
+            "calls": calls, "resnet_fused_forwards": pipe.resnet_fused_forwards,
+            "launches": c}
+    if (max(r["gap_over_tol"] for r in requests) > 1.0 or pipe.resnet_fused_forwards != calls
+            or c["resnet_stack"] != 6 * pipe.resnet_fused_forwards):
+        raise AssertionError(f"the ResNet's serving through its stack kernels disagrees: {line}")
+    return line
 
 
 MODS_POINTS = {
@@ -2287,6 +2467,7 @@ def main() -> int:
         extract_features_fused_any,
     )
     from amcpy_tpu_torch.ops.pallas_features import extract_features_pallas
+    from amcpy_tpu_torch.ops.resnet_trunk import resnet_stack
     from amcpy_tpu_torch.preprocessing import Standardizer
     from amcpy_tpu_torch.serve import AMCPipeline
     from amcpy_tpu_torch.train.checkpoint import save_checkpoint
@@ -2336,6 +2517,22 @@ def main() -> int:
         raise AssertionError(f"ptxas reported fused_cluster_kernel for C = {sorted(cluster_ptxas)}")
 
     rows = phase_kernels(torch, dev)
+    # the ResNet's stack kernel, one instance a width of input (2, 32)
+    resnet_ptxas = [r for entry, r in ptxas_report(logs["resnet_trunk"]).items()
+                    if "resnet_stack_kernel" in entry]
+    if len(resnet_ptxas) != 2:
+        raise AssertionError("ptxas reported no resnet_stack_kernel for 2 and 32 input channels")
+    resnet = resnet_trunk_check_and_time(torch, dev)
+    emit({"phase": "resnet_trunk", "rtol": RESNET_RTOL, "ptxas": resnet_ptxas, **resnet})
+    trunk = resnet["timed"][str(RESNET_TIMED[-1])]["trunk"]
+    rows["resnet_stack"] = {
+        "max_abs_err": resnet["max_abs_err"], "max_err_over_tol": resnet["max_gap_over_tol"],
+        "ms": trunk["ms"], "warm_l2_ms": None,
+        # the plain version is the module's stack: both are its forward
+        "plain_ms": trunk["module_ms"], "library_ms": trunk["module_ms"],
+        "bound_ms": trunk["bound_ms"], "bound_by": "operations",
+        "shape": [RESNET_TIMED[-1], 2, 1024], "ptxas_by_width": resnet_ptxas,
+    }
     rows["cnn_trunk"].update(wgmma_ptxas[0])
     rows["pallas"].update(wg_ptxas[0])
     rows["fused_cluster"].update(cluster_ptxas[rows["fused_cluster"]["cluster"]])
@@ -2357,6 +2554,7 @@ def main() -> int:
                     "pallas_warpgroup": extract_features_pallas.launches_by_path["warpgroup"],
                     "cnn_trunk": cnn_trunk.launches,
                     "cnn_trunk_wgmma": cnn_trunk.launches_by_path["wgmma"],
+                    "resnet_stack": resnet_stack.launches,
                     "reroutes": extract_features_fused_any.reroutes}
 
         def zero_counts() -> None:
@@ -2369,6 +2567,7 @@ def main() -> int:
             cnn_trunk.launches = 0
             for path in cnn_trunk.launches_by_path:
                 cnn_trunk.launches_by_path[path] = 0
+            resnet_stack.launches = 0
             extract_features_fused_any.reroutes = 0
 
         # each path is driven with every count set to 0 just before it and
@@ -2690,6 +2889,9 @@ def main() -> int:
         # ---- phase 17: frames past one block, K1's cluster route, paths 20-21
         emit(phase_long_frames(torch, dev, cfg, work, counts, zero_counts, paths))
 
+        # ---- phase 18: the ResNet served through its stack kernel, path 22 --
+        emit(phase_serving_resnet(torch, dev, cfg, counts, zero_counts, paths))
+
         for path, (keys, c) in paths.items():
             for key in path_keys(keys):
                 if c[key] == 0 or c["reroutes"]:
@@ -2709,6 +2911,9 @@ def main() -> int:
                    "amcpy_tpu_torch/csrc/features.cu"),
         "cnn_trunk": ("amc_cnn_trunk (K3)", "amcpy_tpu/ops/cnn_infer.py:109",
                       "amcpy_tpu_torch/csrc/cnn_trunk.cu"),
+        "resnet_stack": ("amc_resnet_stack (the ResNet's residual stacks)",
+                         "none: the JAX package has no ResNet",
+                         "amcpy_tpu_torch/csrc/resnet_trunk.cu"),
     }
     per_request = {r["route"]: r["launches"] for r in requests + cnn_requests
                    if r["frames"] == 4096 and r["route"].endswith("/complex")}
@@ -2758,6 +2963,7 @@ def main() -> int:
             "registers": r.get("registers"),
             "spill_stores": r.get("spill_stores"),
             "spill_loads": r.get("spill_loads"),
+            "ptxas_by_width": r.get("ptxas_by_width"),
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -70,7 +70,7 @@ def test_every_source_has_its_entry_points():
     """Each ``csrc/*.cu`` is a library with ctypes signatures, and each
     library exports ``amc_error_string`` for ``_build.check``."""
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert sources == sorted(_build.SIGNATURES) == ["cnn_trunk", "features"]
+    assert sources == sorted(_build.SIGNATURES) == ["cnn_trunk", "features", "resnet_trunk"]
     for name, fns in _build.SIGNATURES.items():
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert "amc_error_string" in fns
