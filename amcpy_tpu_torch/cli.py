@@ -516,9 +516,27 @@ def _eval_cm_dataset(cfg: Config, args, meta, build):
     return x[te], y[te]
 
 
+#: the families ``eval`` and ``quantize`` take (the JAX package's); the port only serves the rest
+_EVALUATED = ("mlp", "cnn")
+
+
+def _load_evaluated(cfg: Config, model_id: str):
+    """``load_checkpoint``, or ``SystemExit`` for a family not in :data:`_EVALUATED`."""
+    from amcpy_tpu_torch.train.checkpoint import load_checkpoint
+
+    loaded = load_checkpoint(cfg, model_id)
+    family = loaded[0].family
+    if family not in _EVALUATED:
+        raise SystemExit(
+            f"checkpoint {model_id} is a {family} model: the port serves this family "
+            "only (amc-torch serve); it does not evaluate or quantize it."
+        )
+    return loaded
+
+
 def cmd_eval(cfg: Config, args: argparse.Namespace) -> None:
     from amcpy_tpu_torch.preprocessing import build_dataset, build_raw_dataset
-    from amcpy_tpu_torch.train.checkpoint import load_checkpoint, resolve_model_id
+    from amcpy_tpu_torch.train.checkpoint import resolve_model_id
     from amcpy_tpu_torch.train.evaluate import (
         confusion_counts,
         evaluate_by_snr,
@@ -526,9 +544,9 @@ def cmd_eval(cfg: Config, args: argparse.Namespace) -> None:
     )
 
     model_id = resolve_model_id(cfg, args.model_id)
-    model, _, scaler, meta = load_checkpoint(cfg, model_id)
+    model, _, scaler, meta = _load_evaluated(cfg, model_id)
     n_classes = len(cfg.signals.modulations_with_noise)
-    if (meta["config"].get("model") or {}).get("family") == "cnn":
+    if model.takes_iq:
         data = _load_raw(cfg)
         acc = evaluate_by_snr_raw(model, data, cfg, device=args.device)
         x, y = _eval_cm_dataset(cfg, args, meta,
@@ -548,11 +566,11 @@ def cmd_quantize(cfg: Config, args: argparse.Namespace) -> None:
 
     from amcpy_tpu_torch.ops.quantize import emit_c_header, quantize_model
     from amcpy_tpu_torch.preprocessing import build_dataset
-    from amcpy_tpu_torch.train.checkpoint import load_checkpoint, resolve_model_id
+    from amcpy_tpu_torch.train.checkpoint import resolve_model_id
 
     model_id = resolve_model_id(cfg, args.model_id)
-    model, _, scaler, meta = load_checkpoint(cfg, model_id)
-    if (meta["config"].get("model") or {}).get("family") == "cnn":
+    model, _, scaler, meta = _load_evaluated(cfg, model_id)
+    if model.takes_iq:
         raise SystemExit(
             "quantize targets the feature-MLP/MCU deployment path (Q-format "
             f"Dense export); checkpoint {model_id} is a raw-IQ CNN. Train "

@@ -66,6 +66,21 @@ class AMCClassifier(nn.Module):
         self.out = nn.Linear(widths[-1], n_classes)
         init_flax_defaults(self)
 
+    def sidecar(self, cfg) -> dict:
+        """The sidecar's ``model`` block: the family alone (the widths are
+        the config's)."""
+        return {"family": self.family}
+
+    @classmethod
+    def from_sidecar(cls, meta: dict) -> "AMCClassifier":
+        """The model a sidecar describes: ``config.training``'s hidden
+        sizes, dropout and activation over its used columns."""
+        c = meta["config"]
+        t = c["training"]
+        return cls(n_classes=c["n_classes"], hidden_sizes=tuple(t["hidden_sizes"]),
+                   dropout=t["dropout"], activation=t["activation"],
+                   in_features=len(c["features"]["used_columns"]))
+
     def forward(
         self, x: torch.Tensor, *, generator: torch.Generator | None = None, shard=None
     ) -> torch.Tensor:

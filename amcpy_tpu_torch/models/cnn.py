@@ -185,6 +185,21 @@ class IQConvNet(nn.Module):
             "dtype": self.dtype,
         }
 
+    def sidecar(self, cfg) -> dict:
+        """The sidecar's ``model`` block, as the JAX CLI writes it: the
+        family, ``input_shape`` ``[2, N]`` of the config's frame size and
+        :meth:`arch`."""
+        return {"family": self.family, "input_shape": [2, cfg.signals.frame_size],
+                "arch": self.arch()}
+
+    @classmethod
+    def from_sidecar(cls, meta: dict) -> "IQConvNet":
+        """The model a sidecar describes: its ``model.arch`` (lists as
+        tuples; a missing arch is the defaults)."""
+        arch = meta["config"]["model"].get("arch") or {}
+        return cls(n_classes=meta["config"]["n_classes"],
+                   **{k: tuple(v) if isinstance(v, list) else v for k, v in arch.items()})
+
     def forward(
         self, x: torch.Tensor, *, generator: torch.Generator | None = None, shard=None
     ) -> torch.Tensor:

@@ -127,6 +127,20 @@ class RadioResNet(nn.Module):
         return {"stacks": len(self.stacks), "filters": self.filters,
                 "kernel_size": self.kernel_size, "dense": list(self.dense_widths)}
 
+    def sidecar(self, cfg) -> dict:
+        """The sidecar's ``model`` block: the family, ``input_shape``
+        ``[2, frame_size]`` of the model's own frame size and :meth:`arch`."""
+        return {"family": self.family, "input_shape": [2, self.frame_size],
+                "arch": self.arch()}
+
+    @classmethod
+    def from_sidecar(cls, meta: dict) -> "RadioResNet":
+        """The model a sidecar describes: ``model.arch`` at the frame size
+        of ``model.input_shape``."""
+        m = meta["config"]["model"]
+        return cls(n_classes=meta["config"]["n_classes"], frame_size=m["input_shape"][1],
+                   **m["arch"])
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = x.shape[0]
         self.forwards += 1

@@ -38,9 +38,11 @@ import ctypes
 
 import torch
 
+from amcpy_tpu_torch.models.cnn import IQConvNet
 from amcpy_tpu_torch.utils.device import no_tf32
 
 __all__ = [
+    "serving_route",
     "supports_fused",
     "fold_bn_params",
     "trunk_path",
@@ -223,3 +225,16 @@ def cnn_logits_fused(
         raise ValueError("the fused CNN trunk takes a k=1/stride-1 bf16 stack")
     folded = folded or fold_bn_params(model)
     return cnn_head(cnn_trunk(i, q, folded["convs"]), folded["dense"])
+
+
+def serving_route(model, kernel: str, device: torch.device):
+    """K3's serving route for ``model`` under the resolved extraction
+    ``kernel``: ``("k3", forward, True)`` for an :class:`IQConvNet` when
+    ``kernel`` is ``"fused"`` and :func:`supports_fused` holds, on any
+    ``device`` (the CPU runs the plain trunk), else None. The BatchNorm is
+    folded once, here; ``forward(i, q)`` takes the ``(B, N)`` I and Q
+    planes (the ``True``) and runs :func:`cnn_logits_fused`."""
+    if not (isinstance(model, IQConvNet) and kernel == "fused" and supports_fused(model)):
+        return None
+    folded = fold_bn_params(model)
+    return "k3", lambda i, q: cnn_logits_fused(model, i, q, folded=folded), True

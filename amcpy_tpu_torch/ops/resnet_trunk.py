@@ -38,6 +38,7 @@ from amcpy_tpu_torch.utils.metrics import span
 
 __all__ = [
     "PARAMS",
+    "serving_route",
     "stack_fits",
     "supports_fused",
     "pack_params",
@@ -172,3 +173,16 @@ def resnet_logits_fused(model, planes: torch.Tensor, packed: list[torch.Tensor])
         with span("amc.resnet.stack", stack=s, frames=b):
             x = resnet_stack(x, p)
     return model.head(x)
+
+
+def serving_route(model, kernel: str, device: torch.device):
+    """The stack kernels' serving route for ``model`` on ``device``:
+    ``("resnet_stacks", forward, False)`` for a :func:`supports_fused`
+    model on a CUDA device, whatever the extraction ``kernel``, else None.
+    The weights are packed once, here; ``forward(planes)`` takes packed
+    ``(B, 2, N)`` frames (the ``False``) and runs
+    :func:`resnet_logits_fused`: six stack launches and the head."""
+    if device.type != "cuda" or not supports_fused(model):
+        return None
+    packed = pack_params(model)
+    return "resnet_stacks", lambda planes: resnet_logits_fused(model, planes, packed), False

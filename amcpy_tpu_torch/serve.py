@@ -40,23 +40,16 @@ a factorizable N is encoded on the host (``ops/wire.py``), crosses as
 block-float integers, and is decoded on the device before K1; every other
 request, and every other format, crosses as float32.
 
-A model whose ``takes_iq`` holds (:class:`~amcpy_tpu_torch.models.cnn.IQConvNet`,
-:class:`~amcpy_tpu_torch.models.resnet.RadioResNet`) takes the raw frames:
-its checkpoint has no feature or standardize stage (the identity scaler in
-its sidecar is not used) and it never takes the int24 wire. For an
-``IQConvNet``, when the kernel resolves to ``"fused"`` (``"auto"`` on
-CUDA) and :func:`~amcpy_tpu_torch.ops.cnn_infer.supports_fused` holds (the
-default k=1/stride-1 bf16 stack), a request runs the CUDA trunk kernel K3
-on the I and Q planes and the dense head (``cnn_logits_fused``, with the
-BatchNorm folded once when the pipeline is built). A
-:class:`~amcpy_tpu_torch.models.resnet.RadioResNet` on CUDA whose widths
-:func:`~amcpy_tpu_torch.ops.resnet_trunk.supports_fused` takes runs one
-stack kernel a stack and the module's head (``resnet_logits_fused``, the
-weights packed once when the pipeline is built);
-:attr:`AMCPipeline.resnet_fused_forwards` counts those requests. Every
-other case runs the module forward on ``(B, 2, N)``, as the
-JAX package does: ``kernel="xla"`` or ``"pallas"`` for the CNN, the CPU, a
-k>1 or strided stack, an f32 CNN, a ResNet of other widths.
+A model whose ``takes_iq`` holds (the CNN, the ResNet) takes the raw
+frames: its checkpoint has no feature or standardize stage (the identity
+scaler in its sidecar is not used) and it never takes the int24 wire. Its
+forward is the first route that an ops module's ``serving_route`` offers
+(:data:`_IQ_ROUTES`), each of which holds its own rule: K3 and the dense
+head for the default CNN when the kernel resolves to ``"fused"``
+(``ops/cnn_infer.py``), the stack kernels and the head for the ResNet on
+CUDA (``ops/resnet_trunk.py``). A model that no route takes runs its
+module forward on ``(B, 2, N)``, as the JAX package does.
+:attr:`AMCPipeline.route` names the forward that runs.
 
 A request fans out over ``devices`` (by default every visible CUDA device,
 or only the pipeline's own device in a rank of a process group, which owns
@@ -81,18 +74,9 @@ import torch
 
 from amcpy_tpu_torch.config import Config
 from amcpy_tpu_torch.extraction import _kernel_fn, resolve_kernel
-from amcpy_tpu_torch.models.classifier import AMCClassifier
-from amcpy_tpu_torch.models.cnn import IQConvNet
-from amcpy_tpu_torch.models.resnet import RadioResNet
-from amcpy_tpu_torch.ops.cnn_infer import (
-    cnn_logits_fused,
-    fold_bn_params,
-    supports_fused,
-)
+from amcpy_tpu_torch.ops import cnn_infer, resnet_trunk
 from amcpy_tpu_torch.ops.fft import best_factorization
 from amcpy_tpu_torch.ops.fused import split_planes
-from amcpy_tpu_torch.ops.resnet_trunk import pack_params, resnet_logits_fused
-from amcpy_tpu_torch.ops.resnet_trunk import supports_fused as resnet_supports_fused
 from amcpy_tpu_torch.ops.wire import encode_planes, resolve_wire_format
 from amcpy_tpu_torch.parallel.mesh import group_up
 from amcpy_tpu_torch.preprocessing import Standardizer
@@ -100,6 +84,12 @@ from amcpy_tpu_torch.utils.device import no_tf32, resolve_device
 from amcpy_tpu_torch.utils.metrics import span
 
 __all__ = ["AMCPipeline"]
+
+#: the card routes of a raw-IQ model, tried in turn: each takes ``(model,
+#: kernel, device)`` and returns ``(route, forward, wants_planes)`` or None
+_IQ_ROUTES = (cnn_infer.serving_route, resnet_trunk.serving_route)
+#: the MLP's route, by the extraction kernel in front of it
+_MLP_ROUTES = {"fused": "k1", "pallas": "k2", "xla": "features"}
 
 
 class _Staging:
@@ -220,7 +210,7 @@ class AMCPipeline:
 
     def __init__(
         self,
-        model: "AMCClassifier | IQConvNet | RadioResNet",
+        model: torch.nn.Module,
         scaler: Standardizer,
         cfg: Config,
         device: "str | torch.device | None" = None,
@@ -250,27 +240,21 @@ class AMCPipeline:
         #: in pieces, and those concatenated on the host first
         self.coalesced_in_place = 0
         self.coalesced_concatenated = 0
-        #: ResNet requests that ran the stack kernels
-        self.resnet_fused_forwards = 0
         self._count_lock = threading.Lock()
+        #: the int24 wire program's forward (the MLP behind K1 only)
+        self._forward_wire = None
         if self.takes_iq:
-            #: folded trunk and head weights when requests run K3, else None
-            self._folded = (
-                fold_bn_params(self.model)
-                if self.is_cnn and self._kernel == "fused" and supports_fused(model)
-                else None
-            )
-            #: each stack's packed weights when requests run the ResNet's
-            #: stack kernels, else None
-            self._resnet_packed = (
-                pack_params(self.model)
-                if not self.is_cnn and self.device.type == "cuda"
-                and resnet_supports_fused(self.model)
-                else None
-            )
-            # K3 takes the I and Q planes, the module forward (B, 2, N)
-            self._wants_planes = self._folded is not None
+            for serving_route in _IQ_ROUTES:
+                found = serving_route(self.model, self._kernel, self.device)
+                if found is not None:
+                    break
+            else:
+                found = ("module", self.model, False)
+            #: the forward over the staged tensors, and whether it takes
+            #: the I and Q planes or packed (B, 2, N) frames
+            self._route, self._forward, self._wants_planes = found
             return
+        self._route = _MLP_ROUTES[self._kernel]
         self._cols = torch.as_tensor(
             list(cfg.features.used_columns), device=self.device
         )
@@ -284,10 +268,11 @@ class AMCPipeline:
         self._extract, self._wants_planes = _kernel_fn(
             self._kernel, c.normalize_scale, c.gmax_mode, self.device
         )
-        #: decode on the device, then K1 (the int24 program's extractor)
-        self._extract_wire, _ = _kernel_fn(
+        self._forward = self._mlp(self._extract)
+        # decode on the device, then K1
+        self._forward_wire = self._mlp(_kernel_fn(
             "fused", c.normalize_scale, c.gmax_mode, self.device, wire="int24"
-        )
+        )[0])
 
     @classmethod
     def from_checkpoint(
@@ -382,8 +367,7 @@ class AMCPipeline:
         return (
             self._wire == "int24"
             and b >= self.WIRE_MIN_BATCH
-            and not self.takes_iq
-            and self._kernel == "fused"
+            and self._route == "k1"
             and best_factorization(n) is not None
         )
 
@@ -399,8 +383,12 @@ class AMCPipeline:
         return [torch.from_numpy(e).to(self.device) for e in enc]
 
     @property
-    def is_cnn(self) -> bool:
-        return isinstance(self.model, IQConvNet)
+    def route(self) -> str:
+        """The forward a request runs: ``"k1"``, ``"k2"`` or ``"features"``
+        (the MLP behind K1, K2 or the plain extractor), ``"k3"``,
+        ``"resnet_stacks"`` or ``"module"`` (a raw-IQ model on K3, on the
+        ResNet's stack kernels, or its module forward)."""
+        return self._route
 
     @property
     def takes_iq(self) -> bool:
@@ -430,23 +418,21 @@ class AMCPipeline:
 
     def _logits_here(self, pieces: list[np.ndarray]) -> torch.Tensor:
         """Logits of a request's checked arrays on this pipeline's device;
-        the model's launches (features, standardize and MLP, K3 and the
-        head, or a raw-IQ module forward) are the span ``amc.model``."""
+        the model's launches (the :attr:`route`'s forward) are the span
+        ``amc.model``."""
         rows = sum(len(p) for p in pieces)
         wire = self._wire_eligible(rows, pieces[0].shape[-1])
         arrs = self._to_device_wire(self._joined(pieces)) if wire else self._to_device(pieces)
         with span("amc.model", frames=rows):
-            if self.takes_iq:
-                if self._folded is not None:
-                    return cnn_logits_fused(self.model, *arrs, folded=self._folded)
-                if self._resnet_packed is not None:
-                    with self._count_lock:
-                        self.resnet_fused_forwards += 1
-                    return resnet_logits_fused(self.model, *arrs, self._resnet_packed)
-                return self.model(*arrs)
-            feats = (self._extract_wire if wire else self._extract)(*arrs)
-            x = (feats[:, self._cols] - self._mean) / self._std
-            return self._classify(x)
+            return (self._forward_wire if wire else self._forward)(*arrs)
+
+    def _mlp(self, extract):
+        """The MLP's forward behind ``extract``: the features, standardized,
+        into :meth:`_classify`."""
+        def forward(*arrs):
+            feats = extract(*arrs)
+            return self._classify((feats[:, self._cols] - self._mean) / self._std)
+        return forward
 
     def _classify(self, x: torch.Tensor) -> torch.Tensor:
         """The MLP on standardized features, in full float32 (no TF32)."""

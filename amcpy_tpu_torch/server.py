@@ -35,11 +35,11 @@ on the card (``device=None``) or on the CPU (``device="cpu"``).
 
 Endpoints:
 
-* ``GET  /healthz`` — the device, the model's family, frame size and
-  classes, the requests refused for their frame size, and the batcher's
-  counters, with the pipeline's count of coalesced groups written into the
-  staging buffer in pieces and of those concatenated, and of the ResNet's
-  requests run by its stack kernels;
+* ``GET  /healthz`` — the device, the model's family, the pipeline's
+  ``route`` (:attr:`~amcpy_tpu_torch.serve.AMCPipeline.route`), frame size
+  and classes, the requests refused for their frame size, and the
+  batcher's counters, with the pipeline's count of coalesced groups
+  written into the staging buffer in pieces and of those concatenated;
 * ``POST /classify?format=c64|planar&probs=1`` — labels and class ids (and
   probabilities).
 
@@ -379,6 +379,7 @@ class AMCServer:
             "device_name": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                             else "cpu"),
             "family": self.pipe.model.family,
+            "route": self.pipe.route,
             "frame_size": self.frame_size,
             "classes": self.mods,
             "frame_size_refused": self.frame_size_refused,
@@ -391,7 +392,6 @@ class AMCServer:
                 "window_ms": b.window_s * 1e3,
                 "coalesced_in_place": self.pipe.coalesced_in_place,
                 "coalesced_concatenated": self.pipe.coalesced_concatenated,
-                "resnet_fused_forwards": self.pipe.resnet_fused_forwards,
             },
         }
 

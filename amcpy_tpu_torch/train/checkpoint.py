@@ -4,10 +4,10 @@ Counterpart of ``amcpy_tpu/train/checkpoint.py``. A checkpoint is
 ``ann/model-{id}.pt`` plus ``ann/model-{id}.json``, a sidecar with the same
 keys as the JAX package's: scaler, used columns, training hyperparameters,
 split provenance, history, epoch and model family. ``model.family`` is
-``"mlp"`` (the feature MLP), ``"cnn"`` (the raw-IQ :class:`IQConvNet`,
-rebuilt from ``model.arch``) or ``"resnet"`` (the RadioML 2018
-:class:`RadioResNet`, rebuilt from ``model.arch`` and the frame size of
-``model.input_shape``). The ``.pt`` file (read back with
+``"mlp"`` (the feature MLP), ``"cnn"`` (the raw-IQ :class:`IQConvNet`) or
+``"resnet"`` (the RadioML 2018 :class:`RadioResNet`); each class writes its
+own ``model`` block (``sidecar``) and is rebuilt from it (``from_sidecar``),
+found by its ``family`` in :data:`_FAMILIES`. The ``.pt`` file (read back with
 ``weights_only=True``) holds ``{"model": state_dict, "optimizer":
 optimizer state_dict or None, "step": int}``, a complete snapshot to
 resume from; a file holding a bare model ``state_dict`` (the port's first
@@ -25,7 +25,8 @@ port's optimizers, so a run of either package goes on in the other.
 written by flax, decoded in plain Python by
 :mod:`~amcpy_tpu_torch.train.flax_msgpack`) with the same sidecar, when no
 ``.pt`` of that id exists: such a model serves, evaluates, quantizes and
-resumes in the port. The port writes ``.pt`` only.
+resumes in the port. The port writes ``.pt`` only. A family the JAX
+package does not have (the ResNet) has no such file.
 
 With a process group up, rank 0 writes a checkpoint first; after a barrier
 every other rank writes its own copy where the file is not there (as the
@@ -65,6 +66,10 @@ __all__ = [
 ]
 
 
+#: the model class of each sidecar ``model.family``
+_FAMILIES = {cls.family: cls for cls in (AMCClassifier, IQConvNet, RadioResNet)}
+
+
 def _write_atomic(path: Path, data, mode: str) -> None:
     """Never expose a half-written file to a reader."""
     fd, tmp = tempfile.mkstemp(dir=str(path.parent), prefix=path.name)
@@ -91,24 +96,8 @@ def save_checkpoint(
 
     ``state`` (from :func:`~amcpy_tpu_torch.train.training.train`) adds the
     optimizer's state and the step counter, so that the run can resume.
-    ``model_meta`` defaults to ``{"family": "mlp"}`` for the MLP and, for an
-    :class:`IQConvNet`, to ``{"family": "cnn", "input_shape": [2, N],
-    "arch": {...}}`` with the keys the JAX CLI writes; for a
-    :class:`RadioResNet`, to ``{"family": "resnet", "input_shape": [2,
-    frame_size], "arch": {...}}``, the model's own frame size.
+    ``model_meta`` defaults to the model's own block, ``model.sidecar(cfg)``.
     """
-    if model_meta is None and isinstance(model, IQConvNet):
-        model_meta = {
-            "family": "cnn",
-            "input_shape": [2, cfg.signals.frame_size],
-            "arch": model.arch(),
-        }
-    elif model_meta is None and isinstance(model, RadioResNet):
-        model_meta = {
-            "family": "resnet",
-            "input_shape": [2, model.frame_size],
-            "arch": model.arch(),
-        }
     cfg.paths.ensure_dirs()
     path = cfg.paths.trained_ann / f"model-{model_id}.pt"
     buf = io.BytesIO()
@@ -148,7 +137,7 @@ def save_checkpoint(
                 "modulations": list(cfg.signals.modulations_with_noise),
             },
             "n_classes": len(cfg.signals.modulations_with_noise),
-            "model": model_meta or {"family": "mlp"},
+            "model": model_meta or model.sidecar(cfg),
         },
     }
 
@@ -181,33 +170,10 @@ def load_checkpoint(
     meta = json.loads(
         (cfg.paths.trained_ann / f"model-{model_id}.json").read_text()
     )
-    mcfg = meta["config"].get("model") or {"family": "mlp"}
-    family = mcfg.get("family", "mlp")
-    if family == "cnn":
-        model = IQConvNet(
-            n_classes=meta["config"]["n_classes"],
-            **{
-                k: tuple(v) if isinstance(v, list) else v
-                for k, v in (mcfg.get("arch") or {}).items()
-            },
-        )
-    elif family == "resnet":
-        model = RadioResNet(
-            n_classes=meta["config"]["n_classes"],
-            frame_size=mcfg["input_shape"][1],
-            **mcfg["arch"],
-        )
-    elif family == "mlp":
-        tcfg = meta["config"]["training"]
-        model = AMCClassifier(
-            n_classes=meta["config"]["n_classes"],
-            hidden_sizes=tuple(tcfg["hidden_sizes"]),
-            dropout=tcfg["dropout"],
-            activation=tcfg["activation"],
-            in_features=len(meta["config"]["features"]["used_columns"]),
-        )
-    else:
+    family = (meta["config"].get("model") or {}).get("family", "mlp")
+    if family not in _FAMILIES:
         raise NotImplementedError(f"unknown model family {family!r}")
+    model = _FAMILIES[family].from_sidecar(meta)
     pt = cfg.paths.trained_ann / f"model-{model_id}.pt"
     if pt.exists():
         blob = torch.load(pt, map_location="cpu", weights_only=True)
@@ -224,13 +190,13 @@ def load_checkpoint(
     return model, state, Standardizer.from_dict(meta["scaler"]), meta
 
 
-def _read_flax(path: Path, model: "AMCClassifier | IQConvNet", optimizer: str) -> dict:
+def _read_flax(path: Path, model, optimizer: str) -> dict:
     """``{"model", "optimizer", "step"}`` of the JAX package's checkpoint
     for ``model``, whose optax state is that of ``optimizer``."""
     from amcpy_tpu_torch.train.flax_msgpack import msgpack_restore
 
+    to_state = _from_flax(model)
     payload = msgpack_restore(path.read_bytes())
-    to_state = cnn_params_from_flax if isinstance(model, IQConvNet) else params_from_flax
     step = int(np.asarray(payload["step"]))
     return {
         "model": to_state(payload["params"], payload["batch_stats"]),
@@ -327,6 +293,21 @@ def cnn_params_from_flax(
     return state
 
 
+#: the map from the flax pytrees to the ``state_dict`` of each family the
+#: JAX package has
+_FLAX_STATE = {"mlp": params_from_flax, "cnn": cnn_params_from_flax}
+
+
+def _from_flax(model):
+    """The map of ``model``'s family from the flax pytrees to its
+    ``state_dict``; ``NotImplementedError`` for a family the JAX package
+    does not have."""
+    if model.family not in _FLAX_STATE:
+        raise NotImplementedError(f"the {model.family!r} family has no flax form: the JAX "
+                                  "package has no such model, and the port writes .pt")
+    return _FLAX_STATE[model.family]
+
+
 def opt_state_from_optax(
     name: str,
     opt_state: Any,
@@ -357,7 +338,7 @@ def opt_state_from_optax(
         for s in opt_state
         if (isinstance(s, Mapping) and "nu" in s) or hasattr(s, "nu")
     )
-    to_state = cnn_params_from_flax if isinstance(model, IQConvNet) else params_from_flax
+    to_state = _from_flax(model)
     names = [n for n, _ in model.named_parameters()]
 
     def per_param(tree) -> list[torch.Tensor]:

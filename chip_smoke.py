@@ -207,8 +207,8 @@ Phases, each printing one JSON line:
    complex64 requests of 1, 100 and 10,880 frames of 1024 samples (the
    serving cell's dispatch size) and one planar of 10,880, each against the
    module forward on the same frames (within 1e-5 of the largest logit),
-   then timed; six stack launches for every forward the pipeline counts
-   (``resnet_fused_forwards``).
+   then timed; the pipeline's ``route`` is ``"resnet_stacks"`` and the
+   stack kernel launches six times a call (``resnet_stack.launches``).
 
 Twenty-two paths are driven through the kernels: extraction and serving with
 ``kernel="auto"`` (both through K1), serving with ``kernel="pallas"``
@@ -234,7 +234,8 @@ the process exits non-zero; without a CUDA device it exits 1 and prints no
 result.
 
 ``bound_ms`` counts what each kernel's function needs, whatever the
-design (``k1_work``, ``k2_work``, ``k3_work``), FP32 work in lane
+design (``k1_work``, ``k2_work``, ``k3_work`` of the benchmark's
+``port_bench/work.py``), FP32 work in lane
 operations (``FP32_LANE_OPS_PER_S``); K1's counts gamma_max's FFT at the real
 additions of a split-radix FFT, a floor on its lane operations. K3's row also names the kernel that
 ran at the timed shape (``path``) and that kernel's registers and spills,
@@ -264,26 +265,21 @@ from pathlib import Path
 
 import numpy as np
 
-#: published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W)
-HBM_BYTES_PER_S = 3.35e12
-BF16_TENSOR_FLOP_PER_S = 989e12
-#: FP32 work outside the tensor cores is counted in lane operations, each
-#: one issue slot on one of an SM's 128 FP32 lanes: 132 SMs x 128 lanes x
-#: 1.98 GHz = 33.45e12 a second. A multiply and the add it feeds are one
-#: fused multiply-add (the data sheet's 67 TFLOP/s counts that as two
-#: operations); an add, a maximum, a conversion or a ReLU on its own is one
-#: lane operation, as is a conversion that rounds two values at once
-FP32_LANE_OPS_PER_S = 132 * 128 * 1.98e9
-#: the fewest lane operations per sample the 17 statistics need, whatever
-#: the kernel, each sample's values computed once (a transcendental counted
-#: as one, a product fused with the add it feeds): amplitude 3 (|x|^2 as a
-#: multiply and an FMA, sqrt), phase 2 (atan2, |phase|), the means' sums
-#: and max|x| 4, the centred phase sums 4 (a difference and an FMA each),
-#: the normalized amplitude and its sums 4, its centred sums 6, the wrapped
-#: phase step and its sum 6, its centred sums 4, the powers of x / max|x|
-#: behind the nine mixed moments with their 14 sums 26 (the last product of
-#: each summed power fused with its sum)
-STATS_LANE_OPS_PER_SAMPLE = 59
+# the benchmark's yardstick, one copy for both: the published peaks, and
+# each kernel's work and bound counted from its shapes (the tests and the
+# ablation scripts read them through this module)
+from port_bench.work import (  # noqa: F401
+    BF16_TENSOR_FLOP_PER_S,
+    CNN_WIDTHS,
+    FP32_LANE_OPS_PER_S,
+    HBM_BYTES_PER_S,
+    STATS_LANE_OPS_PER_SAMPLE,
+    bound,
+    k1_work,
+    k2_work,
+    k3_bound,
+    k3_work,
+)
 
 TOL_SCALE, TOL_REL = 2e-4, 2e-5
 #: K3 against its plain version, pooled features and logits:
@@ -291,8 +287,6 @@ TOL_SCALE, TOL_REL = 2e-4, 2e-5
 #: layers 0 and 1 to bf16 from float32 values whose last bits differ (sum
 #: order, rsqrtf), so a value next to a rounding boundary lands 2^-8 apart
 K3_TOL = 2e-2
-#: the CNN's default widths: I/Q in, then IQConvNet's (32, 64, 128)
-CNN_WIDTHS = (2, 32, 64, 128)
 
 
 def emit(obj) -> None:
@@ -383,62 +377,6 @@ def cuda_ms(fn, inputs: list[tuple], reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
-
-
-def k1_work(b: int, n: int) -> tuple[float, float]:
-    """(bytes, FP32 lane operations) the fused kernel's function needs on a
-    (b, n) batch: I and Q read once, 18 floats written per frame, one table
-    of N complex twiddles read once; the statistics, and gamma_max as an
-    FFT followed by |X|^2 (a multiply and an FMA) and its maximum (3 N).
-    The FFT is counted at the real additions of the split-radix FFT,
-    3 N log2 N - 3 N + 4: a lane operation makes at most one addition, and
-    every multiplication can ride in a fused multiply-add."""
-    nbytes = 8.0 * b * n + 72.0 * b + 8.0 * n
-    fft = 3.0 * n * np.log2(n) - 3.0 * n + 4.0
-    ops = b * (STATS_LANE_OPS_PER_SAMPLE * n + fft + 3.0 * n)
-    return nbytes, ops
-
-
-def k2_work(b: int, n: int) -> tuple[float, float]:
-    """(bytes, FP32 lane operations) of the statistics kernel on a
-    (b, 2, n) batch."""
-    return 8.0 * b * n + 72.0 * b, float(b) * n * STATS_LANE_OPS_PER_SAMPLE
-
-
-def bound(nbytes: float, lane_ops: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = lane_ops / FP32_LANE_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def k3_work(b: int, n: int) -> tuple[float, float, float]:
-    """(bytes, bf16 tensor-core operations, FP32 lane operations) of the
-    default CNN trunk on (b, n) planes: I and Q read once, 2 * C_out floats
-    written per frame, the folded weights and biases read once; the
-    products of the layers after the first (2 * C_out * C_in per sample
-    each); per sample the RMS (I^2 + Q^2 into the running sum as two FMAs,
-    two scalings: 4), layer 0 (w_i I + b, then + w_q Q: two FMAs a
-    channel), the ReLU and bf16 rounding of each layer that feeds the
-    tensor cores (one conversion with ReLU per two values), the biases of
-    the later layers (the start of their accumulators: no lane operation)
-    and the last layer's ReLU, running sum and running max (3 a channel)."""
-    widths = CNN_WIDTHS
-    pairs = list(zip(widths[:-1], widths[1:]))
-    nbytes = 8.0 * b * n + 8.0 * b * widths[-1] + 4.0 * sum(o * (i + 1) for i, o in pairs)
-    tensor = float(b) * n * sum(2.0 * o * i for i, o in pairs[1:])
-    fp32 = float(b) * n * (4 + 2 * widths[1] + sum(widths[1:-1]) / 2 + 3 * widths[-1])
-    return nbytes, tensor, fp32
-
-
-def k3_bound(b: int, n: int) -> tuple[float, str, dict[str, float]]:
-    """The largest of the three times of ``k3_work``; ``operations`` when a
-    count of operations binds."""
-    nbytes, tensor, fp32 = k3_work(b, n)
-    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "bf16_tensor_ops": tensor / BF16_TENSOR_FLOP_PER_S * 1e3,
-             "fp32_lane_ops": fp32 / FP32_LANE_OPS_PER_S * 1e3}
-    ms = max(parts.values())
-    return ms, "bytes" if ms == parts["bytes"] else "operations", parts
 
 
 def ptxas_report(log: str) -> dict[str, dict[str, int]]:
@@ -842,9 +780,8 @@ def phase_serving_resnet(torch, dev, cfg, counts, zero_counts, paths) -> dict:
     ``AMCPipeline`` through its stack kernels, every count set to 0 just
     before: each request of ``RESNET_REQUESTS`` (and the last size planar)
     against the module forward on the same frames (``RESNET_RTOL`` of the
-    largest logit), then timed; the stack launches must be six for every
-    forward the pipeline counts (``resnet_fused_forwards``), and that count
-    one a call."""
+    largest logit), then timed; the pipeline's route must be the stack
+    kernels', and they must launch six times a call of the pipeline."""
     from amcpy_tpu_torch.data.legacy import DEEPSIG_CLASSES
     from amcpy_tpu_torch.preprocessing import Standardizer
     from amcpy_tpu_torch.serve import AMCPipeline
@@ -857,7 +794,7 @@ def phase_serving_resnet(torch, dev, cfg, counts, zero_counts, paths) -> dict:
                                 "frame_size": 1024})
     identity = Standardizer(np.zeros(1, np.float32), np.ones(1, np.float32))
     pipe = AMCPipeline(model, identity, rcfg, device=dev, devices=[dev])
-    if pipe._resnet_packed is None:
+    if pipe.route != "resnet_stacks":
         raise AssertionError("the published ResNet on the card did not route to its stack kernels")
     sent = [(size, "complex") for size in RESNET_REQUESTS] + [(RESNET_REQUESTS[-1], "planar")]
     requests = []
@@ -879,10 +816,8 @@ def phase_serving_resnet(torch, dev, cfg, counts, zero_counts, paths) -> dict:
     c = counts()
     paths["serving_resnet"] = ("resnet_stack", c)
     line = {"phase": "serving_resnet", "rtol": RESNET_RTOL, "requests": requests,
-            "calls": calls, "resnet_fused_forwards": pipe.resnet_fused_forwards,
-            "launches": c}
-    if (max(r["gap_over_tol"] for r in requests) > 1.0 or pipe.resnet_fused_forwards != calls
-            or c["resnet_stack"] != 6 * pipe.resnet_fused_forwards):
+            "calls": calls, "route": pipe.route, "launches": c}
+    if max(r["gap_over_tol"] for r in requests) > 1.0 or c["resnet_stack"] != 6 * calls:
         raise AssertionError(f"the ResNet's serving through its stack kernels disagrees: {line}")
     return line
 
@@ -1635,7 +1570,7 @@ def serve_traffic(torch, srv, flat, order, full: bool) -> dict:
     if not full:
         return out
 
-    family = "cnn" if pipe.is_cnn else "mlp"
+    family = pipe.model.family
     tol, margin = COALESCE_BARS[family]
     bodies = [flat[order[CLIENT_FRAMES * k : CLIENT_FRAMES * (k + 1)]] for k in range(CLIENTS)]
     alone = [pipe.logits(b) for b in bodies]
@@ -2461,7 +2396,7 @@ def main() -> int:
     from amcpy_tpu_torch.models.classifier import AMCClassifier
     from amcpy_tpu_torch.ops import _build
     from amcpy_tpu_torch.ops import features as F
-    from amcpy_tpu_torch.ops.cnn_infer import cnn_head, cnn_trunk, cnn_trunk_plain
+    from amcpy_tpu_torch.ops.cnn_infer import cnn_head, cnn_trunk, cnn_trunk_plain, fold_bn_params
     from amcpy_tpu_torch.ops.fused import (
         extract_features_fused,
         extract_features_fused_any,
@@ -2638,7 +2573,7 @@ def main() -> int:
         stats_pipe = AMCPipeline.from_checkpoint(
             cfg.replace(compute={"kernel": "pallas"}), "smoke", device=dev
         )
-        if (pipe._kernel, stats_pipe._kernel) != ("fused", "pallas"):
+        if (pipe.route, stats_pipe.route) != ("k1", "k2"):
             raise AssertionError("serving did not resolve to the CUDA kernels")
         requests = []
         order = rng.permutation(flat.shape[0])
@@ -2718,11 +2653,11 @@ def main() -> int:
         cmodule = AMCPipeline.from_checkpoint(
             cfg.replace(compute={"kernel": "xla"}), "smoke_cnn", device=dev
         )
-        if cpipe._kernel != "fused" or cpipe._folded is None:
+        if cpipe.route != "k3":
             raise AssertionError("CNN serving did not resolve to the trunk kernel")
-        if cmodule._folded is not None:
+        if cmodule.route != "module":
             raise AssertionError('kernel="xla" did not take the module forward')
-        folded = cpipe._folded
+        folded = fold_bn_params(cpipe.model)
         cnn_requests = []
 
         def serve_cnn(xr, name, size, reps):
@@ -2833,7 +2768,7 @@ def main() -> int:
         tmodule = AMCPipeline.from_checkpoint(
             cfg.replace(compute={"kernel": "xla"}), cnn_id, device=dev
         )
-        if tpipe._folded is None or tmodule._folded is not None:
+        if (tpipe.route, tmodule.route) != ("k3", "module"):
             raise AssertionError("the trained CNN did not route to K3 and the module")
         xr = flat[order[:4096]]
         out = tpipe.logits(xr)
@@ -2842,7 +2777,7 @@ def main() -> int:
         top2 = ref.topk(2, dim=-1).values
         differs = (out.argmax(-1) != ref.argmax(-1)) & ((top2[:, 0] - top2[:, 1]) > 0.16)
         with torch.inference_mode():
-            tfold = tpipe._folded
+            tfold = fold_bn_params(tpipe.model)
             plain_logits = cnn_head(cnn_trunk_plain(*tpipe._to_device(xr), tfold["convs"]),
                                     tfold["dense"])
         plain_err, plain_ratio = k3_error(out, plain_logits)

@@ -2,8 +2,9 @@
 the CPU: the arithmetic of each kernel's bound (bytes over the memory rate,
 bf16 products over the tensor-core rate, FP32 work in lane operations over
 132 SMs x 128 lanes x 1.98 GHz), and the reading of ptxas's report.
-``chip_smoke.py`` imports only numpy at module level, so it imports here
-without a card.
+``chip_smoke.py`` imports only numpy and the benchmark's yardstick
+(``port_bench/work.py``, whose functions it uses) at module level, so it
+imports here without a card.
 """
 
 import numpy as np

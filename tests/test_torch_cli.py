@@ -265,3 +265,20 @@ def test_config_reads_the_json_form_without_pyyaml(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "yaml", None)
     cfg = Config.from_yaml(path)
     assert (cfg.signals.num_frames, cfg.training.epochs) == (50, 2)
+
+
+@pytest.mark.parametrize("command", ["eval", "quantize"])
+def test_eval_and_quantize_refuse_a_resnet_checkpoint(project, tmp_path, command):
+    """The port serves the RadioML 2018 ResNet only: ``eval`` and
+    ``quantize`` refuse its checkpoint up front, before any data is read."""
+    from amcpy_tpu_torch.models.resnet import RadioResNet
+    from amcpy_tpu_torch.preprocessing import Standardizer
+    from amcpy_tpu_torch.train.checkpoint import save_checkpoint
+
+    _, cfg_yaml, cfg = project
+    cfg = cfg.replace(paths={"root": str(tmp_path)})
+    save_checkpoint(cfg, "rn", RadioResNet(n_classes=6, frame_size=SIZE),
+                    Standardizer(np.zeros(1, np.float32), np.ones(1, np.float32)))
+    with pytest.raises(SystemExit, match="serves this family only"):
+        main(["--root", str(tmp_path), "--config", str(cfg_yaml), "--device", "cpu",
+              command, "rn"])

@@ -307,7 +307,7 @@ def test_pipeline_matches_jax_pipeline(tmp_path, kernel):
         model, Standardizer.from_dict(identity.to_dict()),
         _cfg(tmp_path, kernel=kernel), device="cpu",
     )
-    assert (pipe._folded is not None) == (kernel == "fused")
+    assert pipe.route == {"xla": "module", "fused": "k3"}[kernel]
     rng = np.random.default_rng(12)
     frames = (rng.standard_normal((20, 256)) + 1j * rng.standard_normal((20, 256)))
     frames = frames.astype(np.complex64)
@@ -334,7 +334,7 @@ def test_pipeline_routes(tmp_path, arch, kernel, fused):
     forward."""
     pipe = AMCPipeline(IQConvNet(6, **arch), Standardizer(np.zeros(1), np.ones(1)),
                        _cfg(tmp_path, kernel=kernel), device="cpu")
-    assert pipe.is_cnn and (pipe._folded is not None) == fused
+    assert pipe.model.family == "cnn" and pipe.route == ("k3" if fused else "module")
     assert pipe._wants_planes == fused
     assert pipe.logits(_frames(3, 256, seed=13)).shape == (3, 6)
 

@@ -498,7 +498,7 @@ def test_long_frames_through_the_entry_points_on_card(cuda, tmp_path):
     model = AMCClassifier(6)
     pipes = {k: AMCPipeline(model, scaler, cfg.replace(compute={"kernel": k}), device=cuda)
              for k in ("auto", "xla")}
-    assert pipes["auto"]._kernel == "fused"
+    assert pipes["auto"].route == "k1"
     torch.testing.assert_close(pipes["auto"].logits(x), pipes["xla"].logits(x),
                                atol=1e-3, rtol=1e-3)
 
@@ -574,7 +574,7 @@ def test_serving_routes_agree_on_card(cuda, tmp_path):
         k: AMCPipeline(model, scaler, cfg.replace(compute={"kernel": k}), device=cuda)
         for k in ("auto", "pallas", "xla")
     }
-    assert pipes["auto"]._kernel == "fused"
+    assert pipes["auto"].route == "k1"
     ref = pipes["xla"].logits(x)
     for k in ("auto", "pallas"):
         torch.testing.assert_close(pipes[k].logits(x), ref, atol=1e-3, rtol=1e-3)
@@ -758,7 +758,7 @@ def test_cnn_pipeline_launches_the_trunk_once_per_request(cuda, tmp_path):
         save_checkpoint(cfg, name, IQConvNet(6, **arch), identity)
     x = _frames(300, 512, seed=6, spread=1.0)
     pipe = AMCPipeline.from_checkpoint(cfg, "default", device=cuda)
-    assert pipe._kernel == "fused" and pipe._folded is not None
+    assert pipe.route == "k3"
     for frames in (x, F.to_planar(x), x[:1]):
         launches = cnn_trunk.launches
         on_wgmma = cnn_trunk.launches_by_path["wgmma"]
@@ -771,7 +771,7 @@ def test_cnn_pipeline_launches_the_trunk_once_per_request(cuda, tmp_path):
     torch.testing.assert_close(pipe.logits(x), module.logits(x), atol=0.08, rtol=0)
     for name in ("wide", "f32"):
         other = AMCPipeline.from_checkpoint(cfg, name, device=cuda)
-        assert other._folded is None
+        assert other.route == "module"
         launches = cnn_trunk.launches
         assert other.logits(x).shape == (300, 6)
         assert cnn_trunk.launches == launches
@@ -974,13 +974,13 @@ def test_a_coalesced_request_gives_the_logits_of_its_concatenate(cuda, tmp_path)
     from amcpy_tpu_torch.train.checkpoint import save_checkpoint
 
     mlp = _mlp_pipeline(cuda, tmp_path / "mlp", 256)
-    assert mlp._kernel == "fused"
+    assert mlp.route == "k1"
     cfg = Config().replace(paths={"root": str(tmp_path / "cnn")}, signals={"frame_size": 512})
     torch.manual_seed(0)
     save_checkpoint(cfg, "cnn", IQConvNet(6),
                     Standardizer(np.zeros(1, np.float32), np.ones(1, np.float32)))
     cnn = AMCPipeline.from_checkpoint(cfg, "cnn", device=cuda)
-    assert cnn._folded is not None
+    assert cnn.route == "k3"
     for pipe, n, counter in ((mlp, 256, extract_features_fused), (cnn, 512, cnn_trunk)):
         x = _frames(40, n, seed=16, spread=1.0)
         for req in ([x[:17], x[17:18], x[18:]], [F.to_planar(x[:3]), F.to_planar(x[3:])]):

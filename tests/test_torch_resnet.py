@@ -106,8 +106,10 @@ def test_checkpoint_round_trip(tmp_path, model):
     cfg = _cfg(tmp_path)
     save_checkpoint(cfg, "rn", model, IDENTITY)
     meta = json.loads((cfg.paths.trained_ann / "model-rn.json").read_text())
-    assert meta["config"]["model"] == {"family": "resnet", "input_shape": [2, N],
-                                       "arch": model.arch()}
+    assert meta["config"]["model"] == {
+        "family": "resnet", "input_shape": [2, N],
+        "arch": {"stacks": 6, "filters": 32, "kernel_size": 3, "dense": [128, 128]},
+    }
     loaded, _, _, _ = load_checkpoint(cfg, "rn")
     assert isinstance(loaded, RadioResNet) and loaded.frame_size == N
     x = _planar(_frames(3, seed=2))
@@ -117,6 +119,16 @@ def test_checkpoint_round_trip(tmp_path, model):
     meta["config"]["model"]["family"] = "transformer"
     (cfg.paths.trained_ann / "model-rn.json").write_text(json.dumps(meta))
     with pytest.raises(NotImplementedError, match="transformer"):
+        load_checkpoint(cfg, "rn")
+
+
+def test_a_resnet_msgpack_is_refused_for_having_no_flax_form(tmp_path, model):
+    """The JAX package has no ResNet, so a ResNet sidecar beside a
+    ``.msgpack`` (and no ``.pt``) is refused before the file is read."""
+    cfg = _cfg(tmp_path)
+    pt = save_checkpoint(cfg, "rn", model, IDENTITY)
+    pt.rename(pt.with_suffix(".msgpack"))
+    with pytest.raises(NotImplementedError, match="'resnet' family has no flax form"):
         load_checkpoint(cfg, "rn")
 
 
@@ -134,22 +146,26 @@ def test_the_pipeline_serves_a_coalesced_list_as_the_module_forward(tmp_path, mo
     assert pipe.coalesced_concatenated == 1
 
 
-@pytest.mark.parametrize("family", ["mlp", "cnn", "resnet"])
-def test_each_family_keeps_its_route(tmp_path, family):
+#: the route each family takes on the CPU, by ``compute.kernel``
+CPU_ROUTES = {"fused": {"mlp": "k1", "cnn": "k3", "resnet": "module"},
+              "auto": {"mlp": "features", "cnn": "module", "resnet": "module"}}
+
+
+@pytest.mark.parametrize("family,kernel", [(f, k) for k in CPU_ROUTES for f in CPU_ROUTES[k]],
+                         ids=["mlp", "cnn", "resnet", "mlp-auto", "cnn-auto", "resnet-auto"])
+def test_each_family_keeps_its_route(tmp_path, family, kernel):
     """K1 for the MLP and K3 for the default CNN under ``kernel="fused"``
     (the CPU runs their plain versions), the module forward on ``(B, 2, N)``
-    for the ResNet; the int24 wire for the MLP only."""
+    for the ResNet; under ``"auto"`` the CPU runs the plain extractor and
+    the module forwards. The int24 wire for the MLP on K1 only."""
     model = {"mlp": lambda: AMCClassifier(24), "cnn": lambda: IQConvNet(24),
              "resnet": RadioResNet}[family]()
     pipe = AMCPipeline(model, Standardizer(np.zeros(6), np.ones(6)),
-                       _cfg(tmp_path, kernel="fused", wire_format="int24"), device="cpu")
-    assert pipe._kernel == "fused"
-    assert (pipe.is_cnn, pipe.takes_iq) == {"mlp": (False, False), "cnn": (True, True),
-                                            "resnet": (False, True)}[family]
-    assert pipe._wants_planes == (family != "resnet")
-    if family != "mlp":
-        assert (pipe._folded is not None) == (family == "cnn")
-    assert pipe._wire_eligible(AMCPipeline.WIRE_MIN_BATCH, N) == (family == "mlp")
+                       _cfg(tmp_path, kernel=kernel, wire_format="int24"), device="cpu")
+    assert (pipe.model.family, pipe.takes_iq) == (family, family != "mlp")
+    assert pipe.route == CPU_ROUTES[kernel][family]
+    assert pipe._wants_planes == (pipe.route in ("k1", "k3"))
+    assert pipe._wire_eligible(AMCPipeline.WIRE_MIN_BATCH, N) == (pipe.route == "k1")
     assert pipe.frame_size == (N if family == "resnet" else None)
     assert pipe.logits(_frames(2, seed=3)).shape == (2, 24)
 
@@ -192,6 +208,7 @@ def test_the_server_serves_24_classes_and_refuses_another_frame_size(server):
     with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
         h = json.loads(r.read())
     assert (h["family"], h["frame_size"], h["frame_size_refused"]) == ("resnet", N, 3)
+    assert h["route"] == "module"
     assert h["classes"] == list(DEEPSIG_CLASSES) and h["frames_classified"] == 10
 
 

@@ -96,6 +96,20 @@ def test_supports_fused_is_false_for_the_other_families_and_float64():
         rt.pack_params(RadioResNet(kernel_size=5))
 
 
+@pytest.mark.parametrize("kernel", ["xla", "pallas", "fused"])
+def test_the_serving_route_takes_a_fitting_resnet_on_cuda_whatever_the_kernel(kernel):
+    """The stack kernels serve a :func:`supports_fused` ResNet on a CUDA
+    device under every extraction kernel, on packed ``(B, 2, N)`` frames;
+    never on the CPU, another family or other widths. The rule needs no
+    card: the weights are packed where the model is."""
+    cuda = torch.device("cuda")
+    name, _, wants_planes = rt.serving_route(_model(), kernel, cuda)
+    assert (name, wants_planes) == ("resnet_stacks", False)
+    assert rt.serving_route(_model(), kernel, torch.device("cpu")) is None
+    assert rt.serving_route(RadioResNet(kernel_size=5), kernel, cuda) is None
+    assert rt.serving_route(IQConvNet(24), kernel, cuda) is None
+
+
 @pytest.mark.parametrize("c_in, length, fits", [
     (2, 1024, True), (32, 512, True), (32, 32, True), (2, 2048, True), (2, 256, True),
     (32, 16, False), (32, 48, False), (32, 768, False), (3, 1024, False), (16, 512, False),
@@ -181,12 +195,13 @@ def test_the_fused_logits_on_the_cpu_are_the_module_forward_with_its_spans_and_c
 def test_a_cpu_pipeline_keeps_the_module_forward(tmp_path):
     model = _model()
     pipe = AMCPipeline(model, IDENTITY, _cfg(tmp_path), device="cpu")
-    assert pipe._resnet_packed is None
+    assert pipe.route == "module"
     x = _frames(4, seed=4)
+    before = rt.resnet_stack.launches
     got = pipe.logits([x[:1], x[1:]])
     with torch.inference_mode():
         assert torch.equal(got, model(torch.from_numpy(x)))
-    assert (pipe.resnet_fused_forwards, model.forwards) == (0, 2)
+    assert (rt.resnet_stack.launches - before, model.forwards) == (0, 2)
 
 
 def test_the_build_names_the_stack_kernels_entry_points():
@@ -264,7 +279,7 @@ def test_impulses_at_the_edges_and_the_tile_seam_on_card(cuda):
 def test_a_coalesced_request_gives_its_one_array_logits_on_card(cuda, tmp_path):
     model = _model(cuda)
     pipe = AMCPipeline(model, IDENTITY, _cfg(tmp_path), device=cuda, devices=[cuda])
-    assert pipe._resnet_packed is not None
+    assert pipe.route == "resnet_stacks"
     x = _frames(2176 + 128 + 3, seed=5)
     pieces = [x[:2176], x[2176:2304], x[2304:]]
     before = rt.resnet_stack.launches
@@ -272,7 +287,7 @@ def test_a_coalesced_request_gives_its_one_array_logits_on_card(cuda, tmp_path):
     one = pipe.logits(x)
     assert torch.equal(got, one)
     assert rt.resnet_stack.launches == before + 12
-    assert (pipe.resnet_fused_forwards, model.forwards) == (2, 2)
+    assert model.forwards == 2
     with torch.inference_mode():
         _assert_close(one, model(torch.from_numpy(x).to(cuda)))
 

@@ -178,6 +178,7 @@ def test_checkpoint_round_trip(tmp_path):
     np.testing.assert_array_equal(scaler.mean, pipe.scaler.mean)
     np.testing.assert_array_equal(scaler.std, pipe.scaler.std)
     assert meta["history"] == history and meta["epoch"] == 2
+    assert meta["config"]["model"] == {"family": "mlp"}
 
     # the sidecar carries the same keys and config values as the JAX one
     jcfg = jpipe.cfg

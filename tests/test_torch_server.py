@@ -105,6 +105,7 @@ def test_http_server_classify_and_health(server):
     h = _get(f"{base}/healthz")
     assert h["status"] == "ok" and h["frame_size"] == N
     assert h["device"] == "cpu" and h["device_name"] == "cpu"
+    assert (h["family"], h["route"]) == ("mlp", "features")  # "auto" on the CPU
     assert h["classes"][0] == "BPSK"
 
     frames = _frames(60, seed=3)
