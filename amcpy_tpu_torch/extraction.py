@@ -8,6 +8,14 @@ chunk k is copied and computed. The per-modulation ``.mat`` artifacts keep
 the reference layout, and a re-run skips modulations whose artifact
 exists (``force=True`` overrides) and recomputes a corrupt one.
 
+:func:`run_extraction` reads each modulation by ``data/io_mat.py``'s direct
+route where the file allows it (an uncompressed MAT v5 variable): its loader
+thread reads the raw I and Q planes, in the file's order, straight into
+pinned buffers (:func:`prepare_file_planes`), and :func:`extract_batch`
+copies each plane whole and reorders it into frames on the device before
+the chunks run; no host pass touches the samples. Other files, and the
+``int24``/``int16`` wire, take ``scipy.io.loadmat`` and :func:`prepare_frames`.
+
 ``wire_format`` ``int24`` or ``int16`` (``ops/wire.py``) applies, as in the
 JAX package, only on the fused route (K1) with a factorizable N: the host
 encodes each chunk's planes into block-float integers, they cross through
@@ -21,8 +29,9 @@ raw IQ crosses the host boundary; only the features come back.
 ``torch.profiler`` (every thread, the loader's too) and writes a Chrome
 trace. Its spans (``utils/metrics.py``): ``amc.extract.pass`` (the call),
 ``amc.extract.load_wait`` (waiting on the loader), the loader's
-``amc.io.load_modulation`` and ``amc.extract.prepare``, ``amc.extract``
-(the stage on the device) and ``amc.io.save_features``.
+``amc.io.load_modulation`` (``direct`` 1 on the direct route, else 0) and
+``amc.extract.prepare``, ``amc.extract`` (the stage on the device; its
+record's ``mat_read`` names the route) and ``amc.io.save_features``.
 
 With a process group up, :func:`run_extraction` takes the JAX package's
 multi-device routes (``extraction.py:570-583``, ``:666-710``):
@@ -67,6 +76,7 @@ from amcpy_tpu_torch.utils.metrics import MetricsLogger, span, stage_timer
 __all__ = [
     "extract_batch",
     "prepare_frames",
+    "prepare_file_planes",
     "PreparedBatch",
     "resolve_kernel",
     "run_extraction",
@@ -179,11 +189,14 @@ def _prep_chunk(
 
 class PreparedBatch:
     """Host-prepared chunks for :func:`extract_batch` (build with
-    :func:`prepare_frames`, typically on a loader thread)."""
+    :func:`prepare_frames` or :func:`prepare_file_planes`, typically on a
+    loader thread)."""
 
-    __slots__ = ("b", "frame_size", "wire", "wants_planes", "chunks", "prep_s")
+    __slots__ = ("b", "frame_size", "wire", "wants_planes", "chunks", "prep_s",
+                 "file_order", "rows")
 
-    def __init__(self, b, frame_size, wire, wants_planes, chunks, prep_s):
+    def __init__(self, b, frame_size, wire, wants_planes, chunks, prep_s,
+                 file_order=None, rows=None):
         self.b = b
         self.frame_size = frame_size
         self.wire = wire
@@ -191,6 +204,12 @@ class PreparedBatch:
         #: list of (start_row, payload_tensors)
         self.chunks = chunks
         self.prep_s = prep_s
+        #: ``(S, F)`` where ``chunks`` is one payload of a ``.mat``
+        #: variable's raw planes in the file's order, reordered on the
+        #: device and run ``rows`` frames a chunk; None where each payload
+        #: holds its chunk's frames
+        self.file_order = file_order
+        self.rows = rows
 
 
 def prepare_frames(
@@ -221,6 +240,43 @@ def prepare_frames(
     )
 
 
+def prepare_file_planes(
+    re: torch.Tensor,
+    im: torch.Tensor,
+    s: int,
+    f: int,
+    *,
+    chunk_size: int | None = None,
+    kernel: str = "xla",
+    device: "str | torch.device | None" = None,
+) -> PreparedBatch:
+    """A :class:`PreparedBatch` of a ``.mat`` variable's raw planes as
+    :func:`io_mat.read_planes <amcpy_tpu_torch.data.io_mat.read_planes>`
+    gives them (``(n, F*S)`` each, the file's order, in pinned memory for a
+    card): :func:`extract_batch` copies each whole, reorders it into ``S*F``
+    frames on the device and runs chunks of ``chunk_size`` frames. There is
+    no host phase. The caller passes the SAME ``kernel`` and ``device`` to
+    ``extract_batch``."""
+    dev = resolve_device(device)
+    n = re.shape[0]
+    return PreparedBatch(
+        s * f, n, "f32", resolve_kernel(kernel, dev) == "fused", [(0, (re, im))], 0.0,
+        file_order=(s, f), rows=chunk_size or _default_chunk_size(dev, n),
+    )
+
+
+def _file_order_chunks(planes: list, order, rows: int, wants_planes: bool):
+    """(start_row, kernel arguments) of each chunk of ``rows`` frames of a
+    file-order payload's planes, reordered on their device. It takes the
+    list's planes out one at a time, so that each raw plane is freed once
+    reordered: one plane more on the device than the frames alone."""
+    i = io_mat.planes_to_frames(planes.pop(0), *order)
+    q = io_mat.planes_to_frames(planes.pop(0), *order)
+    for lo in range(0, i.shape[0], rows):
+        ci, cq = i[lo : lo + rows], q[lo : lo + rows]
+        yield lo, ((ci, cq) if wants_planes else (torch.stack((ci, cq), 1),))
+
+
 def extract_batch(
     frames: "np.ndarray | PreparedBatch",
     *,
@@ -237,7 +293,9 @@ def extract_batch(
 
     A prep thread splits/packs chunk k+1 while chunk k is copied and
     computed; every chunk's features land in one device buffer, fetched
-    once at the end. A :class:`PreparedBatch` skips the host phase.
+    once at the end. A :class:`PreparedBatch` skips the host phase; one of
+    :func:`prepare_file_planes` is copied whole and reordered into frames
+    on the device.
 
     ``wire`` — ``int24`` or ``int16`` sends block-float integers that the
     device decodes before K1, on the fused route with a factorizable N;
@@ -258,12 +316,14 @@ def extract_batch(
     dev = resolve_device(device)
     t_prep = prep_total = 0.0
     prep_exec: cf.ThreadPoolExecutor | None = None
+    file_order = None
     if isinstance(frames, PreparedBatch):
         prepared = frames
         b = prepared.b
         wire = prepared.wire
         wants_planes = prepared.wants_planes
         prep_total = prepared.prep_s
+        file_order = prepared.file_order
 
         def chunk_stream():
             yield from prepared.chunks
@@ -324,8 +384,11 @@ def extract_batch(
                 ev[1].record()
                 copies.append(ev)
             bytes_h2d += sum(t.numel() * t.element_size() for t in payload)
-            feats = kern(*arrs)
-            out_dev[start : start + feats.shape[0]] = feats
+            parts = ([(start, arrs)] if file_order is None else
+                     _file_order_chunks(arrs, file_order, prepared.rows, wants_planes))
+            for lo, args in parts:
+                feats = kern(*args)
+                out_dev[lo : lo + feats.shape[0]] = feats
         t3 = time.perf_counter()
         out = out_dev.cpu().numpy()
         t_wait = time.perf_counter() - t3
@@ -384,19 +447,32 @@ def run_extraction(
         else:
             results[mod] = loaded
 
+    mat_path = cfg.paths.mat_data / cfg.paths.mat_filename
+    kernel, wire, frame_size = cfg.compute.kernel, cfg.compute.wire_format, cfg.signals.frame_size
+
     # a loader thread reads and prepares modulation k+1 while k is on the
-    # device; its spans are the pass's children
+    # device; its spans are the pass's children. The direct route reads the
+    # raw planes (reordered on the device), where the file and the wire allow
     def _load_prepared(mod: str, parent: int | None):
         with span("amc.io.load_modulation", parent=parent) as sp:
-            raw = io_mat.load_modulation(cfg, mod)  # (S, F, N)
-            sp.set(bytes=raw.nbytes)
-        frames = raw.reshape(-1, raw.shape[-1])
-        with span("amc.extract.prepare", parent=parent, frames=frames.shape[0],
-                  bytes=raw.nbytes):
-            return raw.shape, prepare_frames(
-                frames, kernel=cfg.compute.kernel, wire=cfg.compute.wire_format,
-                device=dev,
-            )
+            layout = io_mat.locate_planes(mat_path, cfg.signals.mat_info[mod])
+            if layout is not None and _settle_wire(
+                kernel, wire, min(layout.dims[2], frame_size), dev
+            ) == "f32":
+                planes = io_mat.read_planes(mat_path, layout, frame_size,
+                                            pin=dev.type == "cuda")
+                shape, nbytes = (*layout.dims[:2], planes[0].shape[0]), 2 * planes[0].nbytes
+            else:
+                planes, raw = None, io_mat.load_modulation(cfg, mod)  # (S, F, N)
+                shape, nbytes = raw.shape, raw.nbytes
+            sp.set(bytes=nbytes, direct=int(planes is not None))
+        with span("amc.extract.prepare", parent=parent, frames=shape[0] * shape[1],
+                  bytes=nbytes):
+            if planes is not None:
+                return shape, prepare_file_planes(*planes, *shape[:2], kernel=kernel,
+                                                  device=dev)
+            return shape, prepare_frames(raw.reshape(-1, shape[-1]), kernel=kernel,
+                                         wire=wire, device=dev)
 
     prof = _profiler(dev) if profile_dir else contextlib.nullcontext()
     loader = cf.ThreadPoolExecutor(1)
@@ -424,6 +500,7 @@ def run_extraction(
                     )
                     rec["frames"] = int(n_snr * n_frames)
                     rec["kernel"] = resolve_kernel(cfg.compute.kernel, dev)
+                    rec["mat_read"] = "loadmat" if prepared.file_order is None else "direct"
                     rec.update(tim)
                 fps = rec["frames"] / max(rec["wall_s"], 1e-9)
                 print(

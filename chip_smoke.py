@@ -42,9 +42,10 @@ Phases, each printing one JSON line:
    registers and spills;
 4. extraction — the main path: a numpy-made ``all_modulations.mat`` at the
    default config (6 modulations x 16 SNR x 1000 frames x 2048 samples)
-   through ``run_extraction`` with ``kernel="auto"``; six artifacts of
-   shape (16, 1000, 18), all finite, 512 random rows against the plain
-   version on the card;
+   through ``run_extraction`` with ``kernel="auto"``, every modulation
+   read by ``io_mat``'s direct route (6 direct reads, asserted); six
+   artifacts of shape (16, 1000, 18), all finite, 512 random rows against
+   the plain version on the card;
 5. serving — a seeded random MLP (26, 29, 30) -> 6 with a Standardizer fit
    on phase 4's features, written with ``save_checkpoint`` and served by
    ``AMCPipeline.from_checkpoint``: requests of 1, 100 and 4096 frames,
@@ -2512,10 +2513,16 @@ def main() -> int:
         # ---- path 1: extraction, kernel="auto" -----------------------------
         log_path = work / "metrics" / "smoke.jsonl"
         zero_counts()
+        reads = io_mat.direct_reads, io_mat.loadmat_reads
         t0 = time.perf_counter()
         results = run_extraction(cfg, device=dev, logger=MetricsLogger(log_path))
         wall = time.perf_counter() - t0
         paths["extraction"] = ("fused", counts())
+        # save_dataset writes with scipy, uncompressed: the direct route
+        mat_reads = {"direct": io_mat.direct_reads - reads[0],
+                     "loadmat": io_mat.loadmat_reads - reads[1]}
+        if mat_reads != {"direct": 6, "loadmat": 0}:
+            raise AssertionError(f"extraction read the dataset {mat_reads}, not 6 direct")
         mods = cfg.signals.modulations_with_noise
         for mod in mods:
             art = io_mat.load_features(cfg, mod)
@@ -2538,8 +2545,8 @@ def main() -> int:
         err, ratio = compare(torch.from_numpy(feats[rows_idx]), want, sample)
         n_frames = flat.shape[0]
         # what the wall time holds besides the per-modulation device stages:
-        # reading the .mat (one modulation timed alone here) and writing
-        # the artifacts
+        # reading the .mat and writing the artifacts; one modulation's read
+        # through loadmat is timed alone here, beside the direct route's
         t0 = time.perf_counter()
         io_mat.load_modulation(cfg, mods[0])
         mat_read_s = time.perf_counter() - t0
@@ -2547,7 +2554,7 @@ def main() -> int:
               "frame_size": cfg.signals.frame_size, "dataset_setup_s": setup_s,
               "wall_s": wall, "frames_per_s": n_frames / wall,
               "split": split, "outside_stages_s": wall - split["wall_s"],
-              "one_mat_read_s": mat_read_s,
+              "one_mat_read_s": mat_read_s, "mat_reads": mat_reads,
               "launches": paths["extraction"][1],
               "rows_checked": 512, "max_abs_err": err,
               "max_err_over_tol": ratio})

@@ -10,7 +10,9 @@ the spans of its traced slice:
   request those cover, for the median request and over all;
 * an extraction pass (``amc.extract.pass``): each span's share of it,
   the loader's read and prep, the wait on the loader, the ``extract``
-  stage and the saves;
+  stage and the saves; the direct reads a pass (the loader's ``direct``
+  counts), and over the whole run ``io_mat``'s counters of direct and
+  ``loadmat`` reads;
 * the spans a request, a dispatch and a pass, and the program spans'
   share of the labelled idle gaps of the device trace.
 
@@ -101,7 +103,8 @@ def request_split(records) -> dict:
 
 def pass_split(records) -> dict:
     """Each span's summed time over the extraction passes' (%), with the
-    seconds and counts behind it."""
+    seconds and counts behind it, and the modulations a pass read by the
+    direct route."""
     secs: dict[str, float] = {}
     count: dict[str, int] = {}
     for r in records:
@@ -112,6 +115,8 @@ def pass_split(records) -> dict:
         return {}
     return {"passes": passes, "spans_per_pass": len(records) / passes, "seconds": secs,
             "share_pct": {k: 100.0 * v / whole for k, v in secs.items()}, "counts": count,
+            "direct_per_pass": sum(r.counts.get("direct", 0) for r in records
+                                   if r.name == "amc.io.load_modulation") / passes,
             "stage_wait_save_pct": 100.0 * sum(secs.get(k, 0.0) for k in (
                 "amc.extract", "amc.extract.load_wait", "amc.io.save_features")) / whole}
 
@@ -164,6 +169,7 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
 
+    from amcpy_tpu_torch.data import io_mat
     from amcpy_tpu_torch.utils import metrics
     from port_bench.harness import run_cell
 
@@ -174,6 +180,7 @@ def main() -> None:
         print("cost", json.dumps(report["cost"]), flush=True)
     for k, cell in enumerate(c for c in args.cells.split(",") if c):
         metrics.clear_spans()
+        reads = io_mat.direct_reads, io_mat.loadmat_reads
         out = run_cell(ROOT, cell, args.seed + k, args.seconds, True, dev,
                        log=lambda line: print(line, file=sys.stderr, flush=True))
         records = metrics.spans()
@@ -183,6 +190,9 @@ def main() -> None:
         if any(r.name == "amc.extract.pass" for r in records):
             row["split"] = pass_split(records)
             row["leaf_label_share"] = leaf_label_share(row["idle_gaps"])
+            row["mat_reads"] = {"direct": io_mat.direct_reads - reads[0],
+                                "loadmat": io_mat.loadmat_reads - reads[1],
+                                "window_frames": out["attempted"]}
         else:
             row["split"] = request_split(records)
         report[cell] = row
