@@ -275,9 +275,7 @@ def _resume(cfg: Config, args):
     history, model, scaler) of ``--resume``; Nones without it."""
     if not getattr(args, "resume", None):
         return cfg, None, {}, None, None
-    from amcpy_tpu_torch.train.checkpoint import load_checkpoint
-
-    model, prev, scaler, meta = load_checkpoint(cfg, args.resume)
+    model, prev, scaler, meta = _load_evaluated(cfg, args.resume)
     cfg = _adopt_checkpoint_training(cfg, args, meta)
     initial = (model.state_dict(), prev.opt_state, int(meta.get("epoch") or 0))
     print(f"Resuming from {args.resume} at epoch {initial[2]}")
@@ -398,8 +396,8 @@ def cmd_train(cfg: Config, args: argparse.Namespace) -> None:
 
     cfg = _training_overrides(cfg, args)
     cfg.paths.ensure_dirs()
-    features = _load_features(cfg)
     cfg, initial, prior_history, _, prev_scaler = _resume(cfg, args)
+    features = _load_features(cfg)
     x_train, x_test, y_train, y_test, scaler = preprocess(features, cfg)
     if prev_scaler is not None:
         # the same artifacts refit the same standardizer; keep the
@@ -444,9 +442,9 @@ def _cmd_train_cnn(cfg: Config, args: argparse.Namespace) -> None:
         cfg = cfg.replace(training=cnn_defaults)
     cfg = _training_overrides(cfg, args)
     cfg.paths.ensure_dirs()
+    cfg, initial, prior_history, model, _ = _resume(cfg, args)
     data = _load_raw(cfg)
     n_classes = len(cfg.signals.modulations_with_noise)
-    cfg, initial, prior_history, model, _ = _resume(cfg, args)
     if model is None:
         model = IQConvNet(
             n_classes=n_classes, dropout=args.dropout if args.dropout is not None else 0.5
@@ -516,7 +514,8 @@ def _eval_cm_dataset(cfg: Config, args, meta, build):
     return x[te], y[te]
 
 
-#: the families ``eval`` and ``quantize`` take (the JAX package's); the port only serves the rest
+#: the families ``eval``, ``quantize`` and ``train --resume`` take (the JAX
+#: package's); the port only serves the rest
 _EVALUATED = ("mlp", "cnn")
 
 
@@ -529,7 +528,7 @@ def _load_evaluated(cfg: Config, model_id: str):
     if family not in _EVALUATED:
         raise SystemExit(
             f"checkpoint {model_id} is a {family} model: the port serves this family "
-            "only (amc-torch serve); it does not evaluate or quantize it."
+            "only (amc-torch serve); it does not evaluate, quantize or train it."
         )
     return loaded
 

@@ -2,8 +2,8 @@
 
 Counterpart of ``amcpy_tpu/serve.py`` (``AMCPipeline``) on one device, for
 every model family: the feature MLP (extract -> standardize -> classify)
-and the raw-IQ models, the CNN and the ResNet (frames straight into the
-model):
+and the raw-IQ models, the CNN, the ResNet and MCLDNN (frames straight
+into the model):
 
     pipe = AMCPipeline.from_checkpoint(cfg, model_id)   # device=None: CUDA
     labels = pipe.predict(frames)            # (B, N) complex or (B, 2, N)
@@ -49,7 +49,11 @@ head for the default CNN when the kernel resolves to ``"fused"``
 (``ops/cnn_infer.py``), the stack kernels and the head for the ResNet on
 CUDA (``ops/resnet_trunk.py``). A model that no route takes runs its
 module forward on ``(B, 2, N)``, as the JAX package does.
-:attr:`AMCPipeline.route` names the forward that runs.
+:attr:`AMCPipeline.route` names the forward that runs. A model that states
+its activations a frame (``activation_bytes()``: MCLDNN, whose recurrence
+holds several MB a frame) runs a dispatch in row chunks of at most
+:attr:`AMCPipeline.chunk_rows` frames, sized by the card's free memory
+when the pipeline is built; a model that states nothing runs whole.
 
 A request fans out over ``devices`` (by default every visible CUDA device,
 or only the pipeline's own device in a rank of a process group, which owns
@@ -163,6 +167,14 @@ class _Staging:
                 for off, v in views]
 
 
+def _free_bytes(device: torch.device) -> int | None:
+    """The device's free memory in bytes, or None where it is not read (a
+    device other than a CUDA card)."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[0]
+
+
 def _write(view: torch.Tensor, a: np.ndarray) -> None:
     """Write host array ``a`` into ``view``, a pinned tensor of its shape,
     cast to the view's dtype."""
@@ -207,6 +219,10 @@ class AMCPipeline:
     #: a request fans out only if every device gets at least this many
     #: frames (the JAX package's smallest bucket, ``MIN_BUCKET``)
     MIN_FRAMES_PER_DEVICE = 64
+    #: the share of the device's free memory a module forward's activations
+    #: may take: the rest holds the dispatch's input, the staging copies,
+    #: the logits and what the allocator keeps between the chunks' sizes
+    ACTIVATION_SHARE = 0.5
 
     def __init__(
         self,
@@ -240,16 +256,29 @@ class AMCPipeline:
         #: in pieces, and those concatenated on the host first
         self.coalesced_in_place = 0
         self.coalesced_concatenated = 0
+        #: row chunks run by the module forward of a dispatch too large for
+        #: the card at once (:meth:`_module_forward`)
+        self.forward_chunks = 0
         self._count_lock = threading.Lock()
         #: the int24 wire program's forward (the MLP behind K1 only)
         self._forward_wire = None
+        #: the most frames a module forward runs at once (None: any): the
+        #: share :attr:`ACTIVATION_SHARE` of the device's free memory, read
+        #: now, over the model's ``activation_bytes()`` a frame; a model
+        #: that states none, or a device whose memory is not read (the CPU),
+        #: runs whole
+        self.chunk_rows = None
+        per_frame = getattr(self.model, "activation_bytes", None)
+        free = None if per_frame is None else _free_bytes(self.device)
+        if free is not None:
+            self.chunk_rows = max(1, int(free * self.ACTIVATION_SHARE) // per_frame())
         if self.takes_iq:
             for serving_route in _IQ_ROUTES:
                 found = serving_route(self.model, self._kernel, self.device)
                 if found is not None:
                     break
             else:
-                found = ("module", self.model, False)
+                found = ("module", self._module_forward(), False)
             #: the forward over the staged tensors, and whether it takes
             #: the I and Q planes or packed (B, 2, N) frames
             self._route, self._forward, self._wants_planes = found
@@ -273,6 +302,27 @@ class AMCPipeline:
         self._forward_wire = self._mlp(_kernel_fn(
             "fused", c.normalize_scale, c.gmax_mode, self.device, wire="int24"
         )[0])
+
+    def _module_forward(self):
+        """The raw-IQ model's module forward over packed ``(B, 2, N)``
+        frames: in row chunks of at most :attr:`chunk_rows` frames, each
+        the span ``amc.chunk`` (``frames``, ``index``) and counted in
+        :attr:`forward_chunks`, where a dispatch has more; whole otherwise."""
+        rows = self.chunk_rows
+        if rows is None:
+            return self.model
+
+        def forward(x: torch.Tensor) -> torch.Tensor:
+            if len(x) <= rows:
+                return self.model(x)
+            out = []
+            for index, lo in enumerate(range(0, len(x), rows)):
+                with span("amc.chunk", frames=min(rows, len(x) - lo), index=index):
+                    out.append(self.model(x[lo : lo + rows]))
+                with self._count_lock:
+                    self.forward_chunks += 1
+            return torch.cat(out)
+        return forward
 
     @classmethod
     def from_checkpoint(

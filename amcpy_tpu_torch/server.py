@@ -37,17 +37,20 @@ Endpoints:
 
 * ``GET  /healthz`` — the device, the model's family, the pipeline's
   ``route`` (:attr:`~amcpy_tpu_torch.serve.AMCPipeline.route`), frame size
-  and classes, the requests refused for their frame size, and the
-  batcher's counters, with the pipeline's count of coalesced groups
-  written into the staging buffer in pieces and of those concatenated;
+  and classes, the requests refused for their frame size, the model's
+  counters (``model_counters``: those of ``forwards``, ``frames`` and
+  ``steps`` it keeps), the module forward's row chunks
+  (``forward_chunks``), and the batcher's counters, with the pipeline's
+  count of coalesced groups written into the staging buffer in pieces and
+  of those concatenated;
 * ``POST /classify?format=c64|planar&probs=1`` — labels and class ids (and
   probabilities).
 
 A ``frame_size`` other than the model's gets 400 unless
 ``allow_any_frame_size=1``: the features shift with N. A model with a
 fixed input length (the pipeline's ``frame_size``: the ResNet, whose
-flatten ties it to its N) takes no other, override or not:
-:meth:`AMCServer.classify` raises ``ValueError`` and the handler answers
+flatten ties it to its N, and MCLDNN, whose reshape does) takes no other,
+override or not: :meth:`AMCServer.classify` raises ``ValueError`` and the handler answers
 400 (``frame_size_refused`` counts both). The server binds 127.0.0.1
 unless told otherwise; it has no authentication.
 """
@@ -383,6 +386,10 @@ class AMCServer:
             "frame_size": self.frame_size,
             "classes": self.mods,
             "frame_size_refused": self.frame_size_refused,
+            "model_counters": {k: getattr(self.pipe.model, k)
+                               for k in ("forwards", "frames", "steps")
+                               if hasattr(self.pipe.model, k)},
+            "forward_chunks": self.pipe.forward_chunks,
             "requests": self._requests,
             "frames_classified": self._frames,
             "batcher": {

@@ -4,8 +4,9 @@ Counterpart of ``amcpy_tpu/train/checkpoint.py``. A checkpoint is
 ``ann/model-{id}.pt`` plus ``ann/model-{id}.json``, a sidecar with the same
 keys as the JAX package's: scaler, used columns, training hyperparameters,
 split provenance, history, epoch and model family. ``model.family`` is
-``"mlp"`` (the feature MLP), ``"cnn"`` (the raw-IQ :class:`IQConvNet`) or
-``"resnet"`` (the RadioML 2018 :class:`RadioResNet`); each class writes its
+``"mlp"`` (the feature MLP), ``"cnn"`` (the raw-IQ :class:`IQConvNet`),
+``"resnet"`` (the RadioML 2018 :class:`RadioResNet`) or ``"mcldnn"`` (the
+conv + LSTM :class:`RadioMCLDNN`); each class writes its
 own ``model`` block (``sidecar``) and is rebuilt from it (``from_sidecar``),
 found by its ``family`` in :data:`_FAMILIES`. The ``.pt`` file (read back with
 ``weights_only=True``) holds ``{"model": state_dict, "optimizer":
@@ -26,7 +27,7 @@ written by flax, decoded in plain Python by
 :mod:`~amcpy_tpu_torch.train.flax_msgpack`) with the same sidecar, when no
 ``.pt`` of that id exists: such a model serves, evaluates, quantizes and
 resumes in the port. The port writes ``.pt`` only. A family the JAX
-package does not have (the ResNet) has no such file.
+package does not have (the ResNet, MCLDNN) has no such file.
 
 With a process group up, rank 0 writes a checkpoint first; after a barrier
 every other rank writes its own copy where the file is not there (as the
@@ -50,6 +51,7 @@ import torch
 from amcpy_tpu_torch.config import Config
 from amcpy_tpu_torch.models.classifier import AMCClassifier
 from amcpy_tpu_torch.models.cnn import IQConvNet
+from amcpy_tpu_torch.models.mcldnn import RadioMCLDNN
 from amcpy_tpu_torch.models.resnet import RadioResNet
 from amcpy_tpu_torch.parallel.audit import barrier
 from amcpy_tpu_torch.parallel.mesh import group_up, is_primary
@@ -67,7 +69,7 @@ __all__ = [
 
 
 #: the model class of each sidecar ``model.family``
-_FAMILIES = {cls.family: cls for cls in (AMCClassifier, IQConvNet, RadioResNet)}
+_FAMILIES = {cls.family: cls for cls in (AMCClassifier, IQConvNet, RadioResNet, RadioMCLDNN)}
 
 
 def _write_atomic(path: Path, data, mode: str) -> None:
@@ -85,7 +87,7 @@ def _write_atomic(path: Path, data, mode: str) -> None:
 def save_checkpoint(
     cfg: Config,
     model_id: str,
-    model: "AMCClassifier | IQConvNet | RadioResNet",
+    model: "AMCClassifier | IQConvNet | RadioResNet | RadioMCLDNN",
     scaler: Standardizer,
     history: dict[str, list[float]] | None = None,
     epoch: int | None = None,
@@ -159,8 +161,8 @@ def save_checkpoint(
 
 def load_checkpoint(
     cfg: Config, model_id: str
-) -> tuple["AMCClassifier | IQConvNet | RadioResNet", TrainState, Standardizer,
-           dict[str, Any]]:
+) -> tuple["AMCClassifier | IQConvNet | RadioResNet | RadioMCLDNN", TrainState,
+           Standardizer, dict[str, Any]]:
     """Rebuild ``(model, state, scaler, meta)``: the model (on the CPU, in
     eval mode), its training state (the optimizer's ``state_dict``, None
     when the file has none, and the step counter), the scaler and the

@@ -282,3 +282,24 @@ def test_eval_and_quantize_refuse_a_resnet_checkpoint(project, tmp_path, command
     with pytest.raises(SystemExit, match="serves this family only"):
         main(["--root", str(tmp_path), "--config", str(cfg_yaml), "--device", "cpu",
               command, "rn"])
+
+
+@pytest.mark.parametrize("command", [["eval", "mc"], ["quantize", "mc"],
+                                     ["train", "--resume", "mc"],
+                                     ["train", "--model", "cnn", "--resume", "mc"]],
+                         ids=["eval", "quantize", "train", "train-cnn"])
+def test_eval_quantize_and_train_refuse_an_mcldnn_checkpoint(project, tmp_path, command):
+    """The port serves MCLDNN only: ``eval``, ``quantize`` and a resumed
+    ``train`` refuse its checkpoint up front, by the family check, before
+    any data is read (``tmp_path`` holds none)."""
+    from amcpy_tpu_torch.models.mcldnn import RadioMCLDNN
+    from amcpy_tpu_torch.preprocessing import Standardizer
+    from amcpy_tpu_torch.train.checkpoint import save_checkpoint
+
+    _, cfg_yaml, cfg = project
+    cfg = cfg.replace(paths={"root": str(tmp_path)})
+    save_checkpoint(cfg, "mc", RadioMCLDNN(n_classes=6, frame_size=SIZE),
+                    Standardizer(np.zeros(1, np.float32), np.ones(1, np.float32)))
+    with pytest.raises(SystemExit, match="it does not evaluate, quantize or train it"):
+        main(["--root", str(tmp_path), "--config", str(cfg_yaml), "--device", "cpu",
+              *command])
